@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the tpu_inspect_torch main path on one NVIDIA GPU.
+"""Smoke test of the tpu_inspect_torch inspection paths on one NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -8,18 +8,26 @@ Run from the repository root with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build the CUDA kernels from ``tpu_inspect_torch/csrc`` (nvcc, sm_90a);
-3. each kernel against its plain PyTorch version on the same CUDA inputs,
-   bit-exact (tolerance 0): the standard workload's own stage inputs
-   (48 units of 315x316) plus seeded random planes of odd sizes with an
-   empty unit;
-4. ``engine.inspect_image(device="cuda")`` on two captures (the standard
-   workload as reference, then a capture shifted by (7, -4) aligned to the
-   first one's centroids), each held field by field against the same
-   engine on ``device="cpu"``, with the kernels' launch counts, NG > 0 and
-   the recovered shift checked;
-5. times on the card: each kernel vs its plain version (CUDA events,
-   median of repeated runs at the main path's shapes) and ``inspect_image``
+2. build the CUDA kernels from ``tpu_inspect_torch/csrc`` (one nvcc per
+   source, all started together, sm_90a);
+3. each of the five kernels against its plain PyTorch version on the same
+   CUDA inputs, bit-exact (tolerance 0): the standard workload's own stage
+   inputs (48 units of 315x316: the seg and ROI tails, the median residual,
+   the blob filter, Canny's strong/candidate planes for the flood, the
+   inverted seg masks for its border form, candidate and fill planes for
+   the labeling, and one unit of the diagnostic pass) plus seeded random
+   planes of odd sizes with an empty and a full unit, and a long 1-px
+   serpentine;
+4. every path on the card, each driven with the launch counts set to 0 just
+   before it and read just after, and held field by field against the same
+   engine on ``device="cpu"``: ``engine.inspect_image`` for the four
+   otsu/adaptive x threshold/canny method combos on the standard workload
+   (the reference capture; for otsu/threshold and adaptive/canny also a
+   capture shifted by (7, -4), aligned to the first one's centroids), and
+   ``engine.defect_intermediates`` on a few units for both defect methods;
+5. times on the card: each kernel vs its plain version (CUDA events, median
+   of repeated runs at the paths' shapes) beside its bound (the bytes the
+   call must move at 3.35 TB/s), and each combo's ``inspect_image``
    steady-state wall ms/image (host image in, host results out).
 
 The second-to-last lines are the card line and one JSON object with the
@@ -30,6 +38,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -40,6 +49,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REPS_KERNEL = 10
 REPS_E2E = 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+COMBOS = (("otsu", "threshold"), ("adaptive", "threshold"), ("otsu", "canny"),
+          ("adaptive", "canny"))
+SHIFTED = {("otsu", "threshold"), ("adaptive", "canny")}
+DIAG_UNITS = 4
+# the plain Canny combos take minutes on the CPU at 48 units (130-165 s
+# each on an 8-core H100 host): their CPU run covers the grid's first
+# two rows, the first 16 units, as bench.py's combo gate does
+CPU_ROWS_CANNY = 2
+PROFILE_REPS = 5
 
 
 def fail(msg: str) -> None:
@@ -72,6 +91,8 @@ def max_abs_err(a, b) -> int:
         b = b.detach().cpu().numpy()
     if a.shape != b.shape:
         fail(f"shape mismatch {a.shape} vs {b.shape}")
+    if a.dtype != b.dtype:
+        fail(f"dtype mismatch {a.dtype} vs {b.dtype}")
     if a.size == 0:
         return 0
     return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
@@ -96,6 +117,55 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def nbytes(*items) -> int:
+    """Bytes of every tensor among ``items`` (tuples are walked)."""
+    import torch
+
+    total = 0
+    for it in items:
+        if isinstance(it, torch.Tensor):
+            total += it.numel() * it.element_size()
+        elif isinstance(it, (tuple, list)):
+            total += nbytes(*it)
+    return total
+
+
+def profile_combo(label: str, run, card: str) -> None:
+    """Device time per kernel (and copy) over PROFILE_REPS calls of ``run``
+    under torch.profiler, per call, beside the host wall of the same calls;
+    the device's idle share is 1 - busy / wall (the profiler adds host
+    cost, so the share is an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_REPS):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_REPS
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only (kernels, memcpy, memset): an aten op's row
+        # repeats the device time of the kernels it launched
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key.startswith("Activity"):
+            continue
+        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / PROFILE_REPS / 1e3, ev.count / PROFILE_REPS, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        say(f"phase 5: profile {label}: the profiler recorded no device time")
+        return
+    say(f"phase 5: profile {label}: device busy {busy:.4f} ms of {wall:.4f} ms wall per "
+        f"image under the profiler (idle share {1 - busy / wall:.3f}) on {card}")
+    for ms, count, key in rows[:12]:
+        say(f"phase 5:   {ms:9.4f} ms  x{count:g}  {key[:90]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -114,6 +184,9 @@ def main() -> int:
     from tpu_inspect_torch.imageio import gather_crops
     from tpu_inspect_torch.kernels import LAUNCHES, build, reset_launches
     from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain
+    from tpu_inspect_torch.ops.canny import canny_planes
+    from tpu_inspect_torch.ops.cc import label_components, label_components_plain
+    from tpu_inspect_torch.ops.flood import propagate, propagate_plain
     from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_plain
     from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
     from tpu_inspect_torch.ops.median import (
@@ -121,8 +194,12 @@ def main() -> int:
         median_residual_mask_plain,
     )
     from tpu_inspect_torch.ops.morphology import close_open_stages, rect_erode_stages
-    from tpu_inspect_torch.ops.threshold import otsu_threshold
-    from tpu_inspect_torch.synthetic import make_mold_image, standard_workload
+    from tpu_inspect_torch.ops.threshold import adaptive_threshold_inv, otsu_threshold
+    from tpu_inspect_torch.synthetic import (
+        make_mold_image,
+        serpentine_plane,
+        standard_workload,
+    )
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
@@ -141,13 +218,15 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, log = build.build(extra_flags=("-Xptxas", "-v"))
     build.lib()
-    say(f"phase 2: built {lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    say(f"phase 2: built {lib_path.name} from {len(build.sources())} sources in "
+        f"{time.perf_counter() - t0:.2f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
 
     # ---- phase 3: kernels vs plain versions, bit-exact ------------------
     seg = SegmentationParams().validated()
+    seg_ad = SegmentationParams(method="adaptive").validated()
     dparams = DefectParams().validated()
     work = standard_workload()
     h, w = work["unit_hw"]
@@ -156,6 +235,7 @@ def main() -> int:
     crops = gather_crops(image, origins, (h, w))
     x = gaussian_blur_u8(crops, seg.gaussian_blur)
     thr = otsu_threshold(x)
+    x_ad = adaptive_threshold_inv(x, max(3, seg_ad.adapt_block | 1), seg_ad.adapt_C)
     co = close_open_stages(seg.morph_kernel)
     erode = rect_erode_stages(dparams.erode_px)
     k, t_res = dparams.median_k, dparams.threshold
@@ -169,24 +249,66 @@ def main() -> int:
     max_x2 = (2 * max_area).contiguous()
     min_x2 = 2 * dparams.min_area
     cand = median_residual_mask(crops, k, t_res, row_lo, row_hi)
+    lo_c, hi_c = max(1, t_res // 2), max(2, t_res)
+    strong, cand_c = canny_planes(crops, lo_c, hi_c)
+    edges = propagate(strong, cand_c, True).to(torch.uint8) * 255
+    free = (seg_masks == 0).contiguous()
+    cand_roi = (cand_c & (roi > 0)).contiguous()
+    fill_roi = (~propagate(None, (~cand_roi).contiguous(), False, border_seed=True)).contiguous()
+    # the diagnostic pass's planes: the first unit whose ROI is not empty
+    u0 = int(torch.nonzero(roi_st[:, 3] > 0)[0, 0])
+    fg1 = cand_roi[u0 : u0 + 1].contiguous()
+    free1 = (~fg1).contiguous()
+    fill1 = (~propagate(None, free1, False, border_seed=True)).contiguous()
 
-    calls = {
+    # per kernel: (label, call, inputs read) at the paths' shapes; "path"
+    # cases are what one inspect_image (or one diagnostic pass) runs, the
+    # others are further forms, checked and timed alongside
+    path_cases = {
         "seg_tail": [
-            ("seg form", lambda f: f(x, co, fill=True, thr=thr)),
-            ("roi form", lambda f: f(seg_masks, erode, out_largest=True)),
+            ("seg form", lambda f: f(x, co, fill=True, thr=thr), (x, thr)),
+            ("roi form", lambda f: f(seg_masks, erode, out_largest=True), (seg_masks,)),
         ],
         "median_residual": [
-            ("roi rows", lambda f: f(crops, k, t_res, row_lo, row_hi)),
+            ("roi rows", lambda f: f(crops, k, t_res, row_lo, row_hi), (crops, row_lo, row_hi)),
         ],
         "blob_filter": [
-            ("roi+open", lambda f: f(cand, max_x2, min_x2=min_x2, roi=roi,
-                                     pre_open=True)),
+            ("roi+open", lambda f: f(cand, max_x2, min_x2=min_x2, roi=roi, pre_open=True),
+             (cand, max_x2, roi)),
+        ],
+        "propagate": [
+            ("canny hysteresis", lambda f: f(strong, cand_c, True), (strong, cand_c)),
+        ],
+        "label": [
+            ("diag fill plane", lambda f: f(fill1), (fill1,)),
+            ("diag fg plane", lambda f: f(fg1), (fg1,)),
+        ],
+    }
+    other_cases = {
+        "seg_tail": [
+            ("adaptive seg form", lambda f: f(x_ad, co, fill=True), (x_ad,)),
+        ],
+        "median_residual": [],
+        "blob_filter": [
+            ("canny form (roi, no open)",
+             lambda f: f(edges, max_x2, min_x2=min_x2, roi=roi, pre_open=False),
+             (edges, max_x2, roi)),
+        ],
+        "propagate": [
+            ("border form, seg masks", lambda f: f(None, free, False, border_seed=True), (free,)),
+            ("border form, diag unit", lambda f: f(None, free1, False, border_seed=True), (free1,)),
+        ],
+        "label": [
+            ("canny candidates 48u", lambda f: f(cand_c), (cand_c,)),
+            ("fill planes 48u", lambda f: f(fill_roi), (fill_roi,)),
         ],
     }
     kernel_fns = {
         "seg_tail": (seg_tail, seg_tail_plain),
         "median_residual": (median_residual_mask, median_residual_mask_plain),
         "blob_filter": (blob_filter, blob_filter_plain),
+        "propagate": (propagate, propagate_plain),
+        "label": (label_components, label_components_plain),
     }
 
     def compare(name, label, got, ref):
@@ -198,21 +320,29 @@ def main() -> int:
         return err
 
     errs = {name: 0 for name in kernel_fns}
-    for name, cases in calls.items():
-        fast, plain = kernel_fns[name]
-        for label, call in cases:
-            got, ref = call(fast), call(plain)
-            torch.cuda.synchronize()
-            errs[name] = max(errs[name], compare(name, label, got, ref))
-            say(f"phase 3: {name} [{label}] 48x{h}x{w} bit-exact vs plain")
+    out_bytes = {}
+    for cases in (path_cases, other_cases):
+        for name, lst in cases.items():
+            fast, plain = kernel_fns[name]
+            for label, call, _ in lst:
+                got, ref = call(fast), call(plain)
+                torch.cuda.synchronize()
+                errs[name] = max(errs[name], compare(name, label, got, ref))
+                out_bytes[(name, label)] = nbytes(got)
+                shape = "x".join(str(d) for d in (got[0] if isinstance(got, tuple) else got).shape)
+                say(f"phase 3: {name} [{label}] {shape} bit-exact vs plain")
 
-    # seeded random planes: odd sizes, an empty unit, edge-touching blobs
+    # seeded random planes: odd sizes, an empty and a full unit, edge-touching
+    # blobs, and a long 1-px serpentine for the flood and the labeling
     rng = np.random.RandomState(0)
     for (u, hh, ww) in [(3, 37, 53), (2, 64, 41), (1, 5, 7)]:
         gray = torch.from_numpy(rng.randint(0, 256, (u, hh, ww), dtype=np.uint8)).to(dev)
         blobs = (rng.rand(u, hh, ww) > 0.55).astype(np.uint8) * 255
         blobs[0] = 0  # empty unit
         blobs_t = torch.from_numpy(blobs).to(dev)
+        full = blobs_t.clone()
+        full[-1] = 255  # full unit
+        seeds = torch.from_numpy((rng.rand(u, hh, ww) > 0.97).astype(np.uint8)).to(dev)
         roi_r = torch.from_numpy(
             (rng.rand(u, hh, ww) > 0.1).astype(np.uint8) * 255).to(dev)
         thr_r = torch.from_numpy(rng.randint(60, 200, u).astype(np.int32)).to(dev)
@@ -230,6 +360,12 @@ def main() -> int:
             ("median_residual", "k 21", lambda f: f(gray, 21, 0)),
             ("blob_filter", "roi+open", lambda f: f(blobs_t, mx_r, min_x2=6, roi=roi_r, pre_open=True)),
             ("blob_filter", "plain", lambda f: f(blobs_t, mx_r, min_x2=0)),
+            ("propagate", "seeded 8-conn", lambda f: f(seeds, full, True)),
+            ("propagate", "seeded 4-conn", lambda f: f(seeds, full, False)),
+            ("propagate", "border 4-conn", lambda f: f(None, full, False, border_seed=True)),
+            ("propagate", "border 8-conn", lambda f: f(None, full, True, border_seed=True)),
+            ("label", "random", lambda f: f(full)),
+            ("label", "inverted", lambda f: f((full == 0).contiguous())),
         ]
         for name, label, call in cases:
             fast, plain = kernel_fns[name]
@@ -237,66 +373,157 @@ def main() -> int:
             torch.cuda.synchronize()
             errs[name] = max(errs[name], compare(name, label, got, ref))
         say(f"phase 3: random {u}x{hh}x{ww} planes bit-exact for all kernels")
+    snake = torch.from_numpy(serpentine_plane(125, 316)[None]).to(dev)
+    tip = torch.zeros_like(snake).flatten()
+    tip[snake.flatten().nonzero().max()] = 1  # seed only the path's far end
+    tip = tip.reshape(snake.shape)
+    t0 = time.perf_counter()
+    got = propagate(tip, snake, True)
+    torch.cuda.synchronize()
+    d_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = propagate_plain(tip, snake, True)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    errs["propagate"] = max(errs["propagate"], compare("propagate", "serpentine", got, ref))
+    if not torch.equal(got, snake > 0):
+        fail("propagate: the serpentine's far-end seed did not reach the whole path")
+    lab = label_components(snake)
+    errs["label"] = max(errs["label"], compare("label", "serpentine", lab, label_components_plain(snake)))
+    if int(lab[snake > 0].unique().numel()) != 1:
+        fail("label: the serpentine is not one component")
+    say(f"phase 3: serpentine 1x125x316 ({int(snake.sum())} px path) bit-exact for "
+        f"propagate ({d_ms:.2f} ms wall) vs plain ({p_ms:.1f} ms wall, a round per "
+        f"pixel) and label")
 
-    # ---- phase 4: the main path on two captures -------------------------
+    # ---- phase 4: every path on the card vs the CPU run -----------------
     grid = work["grid"]
-    captures = [
-        ("reference", work["image"], None, True),
-        ("shifted", make_mold_image(grid, (3000, 4096), seed=1, shift=(7, -4)), "ref", False),
-    ]
-    main_launches = None
-    ref_cent = None
-    for cap_name, img, ref, is_ref in captures:
-        kw = dict(exclusions=work["exclusions"], is_reference=is_ref,
-                  ref_centroids=ref_cent if ref else None)
-        reset_launches()
-        s_gpu, i_gpu = engine.inspect_image(img, grid, seg, dparams, device="cuda", **kw)
-        launches = dict(LAUNCHES)
-        s_cpu, i_cpu = engine.inspect_image(img, grid, seg, dparams, device="cpu", **kw)
-        if main_launches is None:
-            main_launches = launches
-        if launches["seg_tail"] < 2 or launches["median_residual"] < 1 or launches["blob_filter"] < 1:
-            fail(f"{cap_name}: main path missed a kernel, launches {launches}")
-        for field in ("masks", "centroids", "centroid_valid", "shifts"):
-            a, b = getattr(s_gpu, field), getattr(s_cpu, field)
-            if a.dtype != b.dtype or not np.array_equal(a, b):
-                fail(f"{cap_name}: segmentation {field} differs from the CPU run")
-        for field in ("defect_masks", "valid", "areas", "verdicts"):
-            a, b = getattr(i_gpu, field), getattr(i_cpu, field)
-            if a.dtype != b.dtype or not np.array_equal(a, b):
-                fail(f"{cap_name}: inspection {field} differs from the CPU run")
-        ng = int(i_gpu.verdicts.sum())
-        if ng <= 0:
-            fail(f"{cap_name}: no NG unit (expected defects at rate 0.3)")
-        med_shift = np.median(s_gpu.shifts, axis=0).tolist()
-        say(f"phase 4: {cap_name} capture bit-exact vs device=cpu: NG {ng}/"
-            f"{len(i_gpu.verdicts)}, median shift {med_shift}, launches {launches}")
-        if not is_ref and med_shift != [7.0, -4.0]:
-            fail(f"shift not recovered: median {med_shift}, expected [7, -4]")
-        if is_ref:
-            ref_cent = s_gpu.centroid_dict()
+    shifted_img = make_mold_image(grid, (3000, 4096), seed=1, shift=(7, -4))
+    expect = {
+        "threshold": ("seg_tail", "median_residual", "blob_filter"),
+        "canny": ("seg_tail", "propagate", "blob_filter"),
+    }
+    launches_by_path = {}
+    for seg_m, def_m in COMBOS:
+        sp = SegmentationParams(method=seg_m).validated()
+        dp = DefectParams(method=def_m).validated()
+        captures = [("reference", work["image"], True)]
+        if (seg_m, def_m) in SHIFTED:
+            captures.append(("shifted", shifted_img, False))
+        ref_cent = None
+        for cap_name, img, is_ref in captures:
+            path = f"{seg_m}/{def_m} {cap_name}"
+            kw = dict(exclusions=work["exclusions"], is_reference=is_ref,
+                      ref_centroids=None if is_ref else ref_cent)
+            reset_launches()
+            s_gpu, i_gpu = engine.inspect_image(img, grid, sp, dp, device="cuda", **kw)
+            launches = dict(LAUNCHES)
+            launches_by_path[path] = launches
+            # every unit is computed on its own, so the first rows of the
+            # grid on the CPU must equal the first units of the card's run
+            cpu_grid = grid
+            if def_m == "canny":
+                cpu_grid = dataclasses.replace(grid, units_y=CPU_ROWS_CANNY, blocks_y=1)
+            n_cpu = cpu_grid.num_units
+            t0 = time.perf_counter()
+            s_cpu, i_cpu = engine.inspect_image(img, cpu_grid, sp, dp, device="cpu", **kw)
+            cpu_s = time.perf_counter() - t0
+            if launches["seg_tail"] < 2 or any(launches[n] < 1 for n in expect[def_m]):
+                fail(f"{path}: the path missed a kernel, launches {launches}")
+            for field in ("masks", "centroids", "centroid_valid", "shifts"):
+                a, b = getattr(s_gpu, field)[:n_cpu], getattr(s_cpu, field)
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    fail(f"{path}: segmentation {field} differs from the CPU run")
+            for field in ("defect_masks", "valid", "areas", "verdicts"):
+                a, b = getattr(i_gpu, field)[:n_cpu], getattr(i_cpu, field)
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    fail(f"{path}: inspection {field} differs from the CPU run")
+            ng = int(i_gpu.verdicts.sum())
+            if ng <= 0:
+                fail(f"{path}: no NG unit (expected defects at rate 0.3)")
+            med_shift = np.median(s_gpu.shifts, axis=0).tolist()
+            say(f"phase 4: {path} 48 units on the card, the first {n_cpu} bit-exact vs "
+                f"device=cpu ({cpu_s:.1f} s on the CPU): NG {ng}/{len(i_gpu.verdicts)}, "
+                f"median shift {med_shift}, launches {launches}")
+            if not is_ref and med_shift != [7.0, -4.0]:
+                fail(f"{path}: shift not recovered: median {med_shift}, expected [7, -4]")
+            if is_ref:
+                ref_cent = s_gpu.centroid_dict()
+
+    crops_np = crops.cpu().numpy()
+    masks_np = seg_masks.cpu().numpy()
+    for def_m in ("threshold", "canny"):
+        dp = DefectParams(method=def_m).validated()
+        path = f"defect_intermediates/{def_m}"
+        totals = dict.fromkeys(LAUNCHES, 0)
+        for u in range(DIAG_UNITS):
+            reset_launches()
+            got = engine.defect_intermediates(crops_np[u], masks_np[u], dp, device="cuda")
+            launches = dict(LAUNCHES)
+            ref = engine.defect_intermediates(crops_np[u], masks_np[u], dp, device="cpu")
+            if got != ref:
+                fail(f"{path} unit {u}: {got} differs from the CPU run {ref}")
+            needed = ["seg_tail"] + ([] if got["roi_empty"] else ["propagate", "label"])
+            if any(launches[n] < 1 for n in needed):
+                fail(f"{path} unit {u}: the path missed a kernel, launches {launches}")
+            if not got["roi_empty"]:
+                if launches["label"] < 2:
+                    fail(f"{path} unit {u}: label launched {launches['label']} < 2 times")
+                launches_by_path.setdefault(path, launches)  # one full pass
+            for n, c in launches.items():
+                totals[n] += c
+        if path not in launches_by_path:
+            fail(f"{path}: every unit had an empty ROI")
+        say(f"phase 4: {path} on {DIAG_UNITS} units equal to device=cpu, launches "
+            f"{totals} in all (last: {got})")
 
     # ---- phase 5: times ----------------------------------------------------
-    times = {}
-    for name, cases in calls.items():
+    def timed(name, lst):
         fast, plain = kernel_fns[name]
-        ms = sum(cuda_ms(lambda c=call: c(fast), REPS_KERNEL) for _, call in cases)
-        pms = sum(cuda_ms(lambda c=call: c(plain), REPS_KERNEL) for _, call in cases)
-        times[name] = (ms, pms)
-        say(f"phase 5: {name} {ms:.4f} ms (plain {pms:.4f} ms) per image at "
-            f"48x{h}x{w} on {card}")
+        rows = []
+        for label, call, inputs in lst:
+            ms = cuda_ms(lambda c=call: c(fast), REPS_KERNEL)
+            pms = cuda_ms(lambda c=call: c(plain), REPS_KERNEL)
+            bound = (nbytes(inputs) + out_bytes[(name, label)]) / HBM_BYTES_PER_S * 1e3
+            rows.append({"form": label, "ms": ms, "plain_ms": pms, "bound_ms": bound})
+            say(f"phase 5: {name} [{label}] {ms:.4f} ms (plain {pms:.4f} ms, bound "
+                f"{bound * 1e3:.2f} us) on {card}")
+        return rows
+
+    times = {name: (timed(name, path_cases[name]), timed(name, other_cases[name]))
+             for name in kernel_fns}
     otsu_ms = cuda_ms(lambda: otsu_threshold(x), REPS_KERNEL)
     say(f"phase 5: otsu_threshold (host f64 scan) {otsu_ms:.4f} ms on {card}")
-    img_np = work["image"]
-    engine.inspect_image(img_np, grid, seg, dparams, exclusions=work["exclusions"])
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(REPS_E2E):
-        t0 = time.perf_counter()
-        engine.inspect_image(img_np, grid, seg, dparams, exclusions=work["exclusions"])
-        walls.append((time.perf_counter() - t0) * 1e3)
-    say(f"phase 5: inspect_image steady state {statistics.median(walls):.4f} ms/image "
-        f"(median of {REPS_E2E}, min {min(walls):.4f}, wall incl. H2D/D2H) on {card}")
+    e2e = {}
+    for seg_m, def_m in COMBOS:
+        sp = SegmentationParams(method=seg_m).validated()
+        dp = DefectParams(method=def_m).validated()
+        img_np = work["image"]
+        engine.inspect_image(img_np, grid, sp, dp, exclusions=work["exclusions"])
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(REPS_E2E):
+            t0 = time.perf_counter()
+            engine.inspect_image(img_np, grid, sp, dp, exclusions=work["exclusions"])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        e2e[f"{seg_m}/{def_m}"] = statistics.median(walls)
+        say(f"phase 5: inspect_image {seg_m}/{def_m} steady state "
+            f"{statistics.median(walls):.4f} ms/image (median of {REPS_E2E}, min "
+            f"{min(walls):.4f}, wall incl. H2D/D2H) on {card}")
+        profile_combo(
+            f"{seg_m}/{def_m}",
+            lambda: engine.inspect_image(img_np, grid, sp, dp, exclusions=work["exclusions"]),
+            card,
+        )
+    for def_m in ("threshold", "canny"):
+        dp = DefectParams(method=def_m).validated()
+        walls = []
+        for _ in range(REPS_E2E):
+            t0 = time.perf_counter()
+            engine.defect_intermediates(crops_np[u0], masks_np[u0], dp, device="cuda")
+            walls.append((time.perf_counter() - t0) * 1e3)
+        say(f"phase 5: defect_intermediates {def_m} {statistics.median(walls):.4f} ms "
+            f"per unit (median of {REPS_E2E}, wall) on {card}")
 
     sources = {
         "seg_tail": ("tpu_inspect_torch/csrc/seg_tail.cu", "tpu_inspect/ops/fused_pallas.py:145"),
@@ -304,15 +531,36 @@ def main() -> int:
                             "tpu_inspect/ops/median_pallas.py:453"),
         "blob_filter": ("tpu_inspect_torch/csrc/blob_filter.cu",
                         "tpu_inspect/ops/blob_pallas.py:403"),
+        "propagate": ("tpu_inspect_torch/csrc/flood.cu", "tpu_inspect/ops/flood_pallas.py:144"),
+        "label": ("tpu_inspect_torch/csrc/label.cu", "tpu_inspect/ops/cc_pallas.py:501"),
     }
+    # the path each kernel was ported for: its launches and times per image
+    # (per diagnostic pass of one unit for the labeling)
+    home_path = {
+        "seg_tail": "otsu/threshold reference", "median_residual": "otsu/threshold reference",
+        "blob_filter": "otsu/threshold reference", "propagate": "otsu/canny reference",
+        "label": "defect_intermediates/canny",
+    }
+    entries = []
+    for name in kernel_fns:
+        path_rows, other_rows = times[name]
+        bound = sum(r["bound_ms"] for r in path_rows)
+        launches = launches_by_path[home_path[name]][name]
+        entries.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "path": home_path[name],
+            "launches": launches,
+            "launches_by_path": {p: c[name] for p, c in launches_by_path.items()},
+            "max_abs_err": errs[name],
+            "ms": sum(r["ms"] for r in path_rows),
+            "plain_ms": sum(r["plain_ms"] for r in path_rows),
+            "bound_ms": bound, "bound_us": bound * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "forms": path_rows + other_rows,
+        })
+    say(f"phase 5: inspect_image ms/image by combo {json.dumps(e2e)}")
     say(card)
-    say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": main_launches[name],
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
-        for name in kernel_fns
-    ]}))
+    say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

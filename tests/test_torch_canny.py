@@ -1,0 +1,74 @@
+"""The adaptive threshold and Canny ops of the port vs the JAX package.
+
+Same seeded numpy inputs through ``tpu_inspect_torch`` (CPU tensors, so
+kernel D runs as its plain version) and ``tpu_inspect`` (JAX on its CPU
+backend, where the XLA fallbacks run), compared with exact equality, dtypes
+included: the float32 Gaussian local mean must round tap by tap as OpenCV
+does (no fused multiply-add), and Canny's NMS and hysteresis are integer.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_inspect.ops import canny as jcanny
+from tpu_inspect.ops import gaussian as jgauss
+from tpu_inspect.ops import threshold as jthr
+
+from tpu_inspect_torch import config as tcfg
+from tpu_inspect_torch.ops.canny import canny_u8
+from tpu_inspect_torch.ops.gaussian import adaptive_gaussian_mean, gaussian_kernel_f64
+from tpu_inspect_torch.ops.threshold import adaptive_threshold_inv
+from tpu_inspect_torch.synthetic import make_mold_image
+
+UNIT_HW = (44, 48)
+
+
+@pytest.fixture(scope="module")
+def units():
+    """4 units of 44x48: a mold crop, seeded noise, a flat and a saturated
+    unit."""
+    grid = tcfg.GridParams(base_unit=(4, 6, UNIT_HW[1], UNIT_HW[0]), units_x=2)
+    img = make_mold_image(grid, (60, 110), seed=5, defect_rate=1.0)
+    x = np.zeros((4,) + UNIT_HW, np.uint8)
+    x[0] = img[6 : 6 + UNIT_HW[0], 4 : 4 + UNIT_HW[1]]
+    x[1] = np.random.RandomState(6).randint(0, 256, UNIT_HW, dtype=np.uint8)
+    x[2] = 77
+    x[3] = 255
+    return x
+
+
+def _eq(got: torch.Tensor, ref) -> None:
+    ref = np.asarray(ref)
+    assert got.numpy().dtype == ref.dtype, (got.dtype, ref.dtype)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_gaussian_kernel_copy_matches_reference():
+    for k in (1, 3, 5, 7, 9, 51, 201):
+        np.testing.assert_array_equal(gaussian_kernel_f64(k), jgauss.gaussian_kernel_f64(k))
+
+
+@pytest.mark.parametrize("block", [3, 51, 201])
+def test_adaptive_gaussian_mean_matches_reference(units, block):
+    # 201 > the unit's 44x48: the replicate pad (100) exceeds the plane
+    _eq(adaptive_gaussian_mean(torch.from_numpy(units), block),
+        jgauss.adaptive_gaussian_mean(jnp.asarray(units), block))
+
+
+@pytest.mark.parametrize("c", [-50, 0, 10, 50])
+@pytest.mark.parametrize("block", [3, 51, 201])
+def test_adaptive_threshold_inv_matches_reference(units, block, c):
+    got = adaptive_threshold_inv(torch.from_numpy(units), block, c)
+    _eq(got, jthr.adaptive_threshold_inv(jnp.asarray(units), block, c))
+
+
+@pytest.mark.parametrize("thr", [0, 24, 100, 255])
+def test_canny_matches_reference(units, thr):
+    low, high = max(1, thr // 2), max(2, thr)
+    got = canny_u8(torch.from_numpy(units), low, high)
+    _eq(got, jcanny.canny_u8(jnp.asarray(units), low, high))
+    assert not got[2].any() and not got[3].any(), "flat units have no edge"
+    # cv2.Canny orders its thresholds itself
+    torch.testing.assert_close(canny_u8(torch.from_numpy(units), high, low), got, rtol=0, atol=0)

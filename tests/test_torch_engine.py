@@ -4,7 +4,8 @@
 versions of the kernels) against ``tpu_inspect.engine.inspect_image`` (JAX
 on its CPU backend, so its XLA fallbacks run) on a small 2x2 grid: a
 reference capture, then a shifted capture aligned to the reference's
-anchors, with one rect and one circle exclusion. Every field is compared
+anchors, with one rect and one circle exclusion, for all four
+otsu/adaptive x threshold/canny method combos. Every field is compared
 with exact equality, dtypes included.
 """
 
@@ -51,6 +52,11 @@ def captures():
     ({}, {"min_area": 3}, True),
     ({"gaussian_blur": 4, "morph_kernel": 5}, {"min_area": 0, "erode_px": 2,
                                                "median_k": 8, "threshold": 30}, False),
+    # the three other method combos (adaptive block 201 > the 44x48 unit)
+    ({"method": "adaptive"}, {"min_area": 3}, True),
+    ({}, {"method": "canny", "min_area": 3}, True),
+    ({"method": "adaptive", "adapt_block": 201, "adapt_C": -5},
+     {"method": "canny", "min_area": 2, "erode_px": 2, "threshold": 60}, None),
 ])
 def test_inspect_image_matches_jax_engine(captures, seg_kw, def_kw, expect_ng):
     ref_img, shifted = captures
@@ -60,8 +66,8 @@ def test_inspect_image_matches_jax_engine(captures, seg_kw, def_kw, expect_ng):
     js, ji = jeng.inspect_image(ref_img, _j(GRID), _j(seg), _j(dp), exclusions=EXCLUSIONS)
     _assert_equal(s, js, SEG_FIELDS, "reference")
     _assert_equal(i, ji, INSP_FIELDS, "reference")
-    if expect_ng:
-        assert i.verdicts.any(), "defect_rate=1.0 must give an NG unit"
+    if expect_ng is not None:
+        assert i.verdicts.any() == expect_ng, "defect_rate=1.0 with min_area 3 gives an NG unit"
 
     s2, i2 = teng.inspect_image(
         shifted, GRID, seg, dp, exclusions=EXCLUSIONS,
@@ -76,10 +82,14 @@ def test_inspect_image_matches_jax_engine(captures, seg_kw, def_kw, expect_ng):
     assert (s2.shifts != 0).any(), "the shifted capture must move exclusions"
 
 
-def test_unit_level_entry_points_match_jax_engine(captures):
+@pytest.mark.parametrize("seg_m,def_m", [
+    ("otsu", "threshold"), ("adaptive", "threshold"), ("otsu", "canny"), ("adaptive", "canny"),
+])
+def test_unit_level_entry_points_match_jax_engine(captures, seg_m, def_m):
     ref_img, _ = captures
     crops = crop_units(ref_img, _j(GRID))
-    seg, dp = tcfg.SegmentationParams(), tcfg.DefectParams(min_area=3)
+    seg = tcfg.SegmentationParams(method=seg_m)
+    dp = tcfg.DefectParams(method=def_m, min_area=3)
     s = teng.segment_units(crops, seg, EXCLUSIONS, device="cpu")
     js = jeng.segment_units(crops, _j(seg), EXCLUSIONS)
     _assert_equal(s, js, SEG_FIELDS, "segment_units")
@@ -103,11 +113,13 @@ def test_unported_methods_raise():
     img = np.zeros((60, 60), np.uint8)
     grid = tcfg.GridParams(base_unit=(0, 0, 20, 20))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.inspect_image(img, grid, tcfg.SegmentationParams(method="adaptive"),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.inspect_image(img, grid, tcfg.SegmentationParams(),
-                           tcfg.DefectParams(method="canny"), device="cpu")
+                           tcfg.DefectParams(median_k=47), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        teng.defect_intermediates(img[:20, :20], img[:20, :20],
+                                  tcfg.DefectParams(median_k=47), device="cpu")
+    # Canny reads no median window
+    teng.inspect_image(img, grid, tcfg.SegmentationParams(),
+                       tcfg.DefectParams(method="canny", median_k=47), device="cpu")
     seg_only, none = teng.inspect_image(img, grid, tcfg.SegmentationParams(), device="cpu")
     assert none is None and seg_only.masks.shape == (1, 20, 20)
-

@@ -221,7 +221,9 @@ def test_exclusion_zone_matches_reference():
 
 def test_engine_import_loads_no_jax():
     code = (
-        "import sys, tpu_inspect_torch.engine, tpu_inspect_torch.synthetic; "
+        "import sys, tpu_inspect_torch.engine, tpu_inspect_torch.synthetic, "
+        "tpu_inspect_torch.ops.canny, tpu_inspect_torch.ops.contour, "
+        "tpu_inspect_torch.ops.flood; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_inspect' or m.startswith('tpu_inspect.')]; "
         "assert not bad, bad"
@@ -262,8 +264,20 @@ def test_build_raises_clear_error_without_nvcc(monkeypatch, tmp_path):
         build.build()
 
 
+def test_kernel_error_flag_raises():
+    from tpu_inspect_torch.kernels import build
+
+    build.check_bounded("propagate", torch.zeros((1,), dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="iteration bound"):
+        build.check_bounded("propagate", torch.ones((1,), dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="cudaError_t 2"):
+        build.check("label_components", 2)
+
+
 def test_wrappers_reject_bad_inputs():
     from tpu_inspect_torch.ops.blob import blob_filter
+    from tpu_inspect_torch.ops.cc import label_components
+    from tpu_inspect_torch.ops.flood import propagate
     from tpu_inspect_torch.ops.fused import seg_tail
     from tpu_inspect_torch.ops.median import median_residual_mask
 
@@ -280,3 +294,11 @@ def test_wrappers_reject_bad_inputs():
         median_residual_mask(x, 47, 10)  # k*k >= 2048
     with pytest.raises(ValueError):
         blob_filter(x, torch.zeros((2,), dtype=torch.int64), min_x2=0)
+    with pytest.raises(ValueError):
+        propagate(x, x[:1], conn8=True)  # seed and domain differ in shape
+    with pytest.raises(ValueError):
+        propagate(x.to(torch.int32), x, conn8=False)
+    with pytest.raises(ValueError):
+        label_components(x.to(torch.int32))
+    with pytest.raises(ValueError):
+        label_components((x > 0)[:, :, ::2])  # not contiguous

@@ -4,17 +4,21 @@ Port of :mod:`tpu_inspect.engine`'s split path (``_inspect_image_device``
 with the chain flag off): one call goes from the raw grayscale image to
 per-unit masks, defect blobs and X/O verdicts::
 
-    gather crops -> Gaussian -> Otsu -> seg tail (kernel A: x <= thr,
-    close+open, hole fill, largest-CC sums) -> alignment shifts ->
-    exclusion zone -> ROI tail (kernel A: (2n+1)^2 erode, largest CC)
-    -> max area -> median residual (kernel B) -> blob filter (kernel C:
-    ROI AND, 3x3 open, contourArea filter, filled paint) -> verdicts
+    gather crops -> Gaussian -> Otsu (or the adaptive Gaussian-mean
+    threshold) -> seg tail (kernel A: x <= thr or x > 0, close+open, hole
+    fill, largest-CC sums) -> alignment shifts -> exclusion zone -> ROI
+    tail (kernel A: (2n+1)^2 erode, largest CC) -> max area -> median
+    residual (kernel B; or Canny, whose hysteresis is kernel D) -> blob
+    filter (kernel C: ROI AND, 3x3 open for the residual, contourArea
+    filter, filled paint) -> verdicts
 
-Every stage is bit-exact vs the JAX package. On ``device="cuda"`` the three
+:func:`defect_intermediates` is the per-unit diagnostic pass; its contour
+analysis runs kernel D (exterior flood) and kernel E (labeling, twice).
+
+Every stage is bit-exact vs the JAX package. On ``device="cuda"`` the five
 kernels are the hand-written CUDA sources in ``csrc/``; on ``device="cpu"``
-their plain PyTorch versions run. Only the main path's methods are served:
-segmentation ``otsu`` and defect ``threshold``; ``adaptive`` and ``canny``
-raise ``NotImplementedError`` (ROADMAP.md queue A).
+their plain PyTorch versions run. Median windows with k*k >= 2048 raise
+``NotImplementedError`` (ROADMAP.md queue B).
 """
 
 from __future__ import annotations
@@ -29,12 +33,19 @@ from tpu_inspect_torch.device import resolve_device
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
 from tpu_inspect_torch.ops.blob import blob_filter
+from tpu_inspect_torch.ops.canny import canny_u8
 from tpu_inspect_torch.ops.common import as_odd
+from tpu_inspect_torch.ops.contour import analyze_blobs
 from tpu_inspect_torch.ops.fused import seg_tail
 from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
 from tpu_inspect_torch.ops.median import median_residual_mask
-from tpu_inspect_torch.ops.morphology import close_open_stages, rect_erode_stages
-from tpu_inspect_torch.ops.threshold import otsu_threshold
+from tpu_inspect_torch.ops.morphology import (
+    apply_stages,
+    close_open_stages,
+    open_stages,
+    rect_erode_stages,
+)
+from tpu_inspect_torch.ops.threshold import adaptive_threshold_inv, otsu_threshold
 
 
 @dataclass
@@ -177,18 +188,8 @@ def exclusion_zone(shape, rects: np.ndarray, circles: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
-def _check_methods(seg: SegmentationParams | None, defect: DefectParams | None) -> None:
-    if seg is not None and seg.method != "otsu":
-        raise NotImplementedError(
-            f"segmentation method {seg.method!r} is not ported yet "
-            "(ROADMAP.md queue A); only 'otsu' runs on tpu_inspect_torch"
-        )
-    if defect is not None:
-        if defect.method != "threshold":
-            raise NotImplementedError(
-                f"defect method {defect.method!r} is not ported yet "
-                "(ROADMAP.md queue A); only 'threshold' runs on tpu_inspect_torch"
-            )
+def _check_defect(defect: DefectParams) -> None:
+    if defect.method == "threshold":
         k = _median_k(defect)
         if k * k >= 2048:
             raise NotImplementedError(
@@ -219,9 +220,14 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference):
     x = crops
     if seg.gaussian_blur and seg.gaussian_blur > 0:
         x = gaussian_blur_u8(x, as_odd(seg.gaussian_blur))
-    thr = otsu_threshold(x)
     k = _morph_k(seg)
     stages = close_open_stages(k) if k > 1 else ()
+    if seg.method == "adaptive":
+        # the adaptive plane is already 0/255: the tail binarizes x > 0
+        bs = max(3, int(seg.adapt_block) | 1)
+        x, thr = adaptive_threshold_inv(x, bs, int(seg.adapt_C)), None
+    else:
+        thr = otsu_threshold(x)
     mask, st = seg_tail(x, stages=stages, fill=True, out_largest=False, thr=thr)
     area, sx, sy = st[:, 0], st[:, 1], st[:, 2]
     has_fg = st[:, 3] > 0
@@ -255,17 +261,32 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference):
     return mask, sums, has_fg, torch.stack([dx, dy], dim=-1)
 
 
-def _defect(crops, seg_masks, params: DefectParams):
-    """Defect pass -> (masks u8, found bool, area int32, verdict bool)
-    (indexing_ui.py:1471-1572, :1669-1700)."""
-    # ROI: binarize, (2n+1)^2 erode, largest 8-CC (holes kept) + extents
-    roi, st = seg_tail(
+def _defect_roi(seg_masks, params: DefectParams):
+    """ROI: binarize, (2n+1)^2 erode, largest 8-CC (holes kept) -> (roi u8,
+    stats [U, 8] int32) (indexing_ui.py:1480-1516)."""
+    return seg_tail(
         seg_masks, stages=rect_erode_stages(params.erode_px), fill=False,
         out_largest=True,
     )
+
+
+def _candidates(crops, params: DefectParams, roi_stats):
+    """Pre-ROI candidate plane: the median residual over the ROI rows, or
+    Canny edges (indexing_ui.py:1519-1539)."""
+    thr = int(params.threshold)
+    if params.method == "canny":
+        return canny_u8(crops, max(1, thr // 2), max(2, thr))
+    return median_residual_mask(
+        crops, _median_k(params), thr, row_lo=roi_stats[:, 4].contiguous(),
+        row_hi=roi_stats[:, 5].contiguous(),
+    )
+
+
+def _defect(crops, seg_masks, params: DefectParams):
+    """Defect pass -> (masks u8, found bool, area int32, verdict bool)
+    (indexing_ui.py:1471-1572, :1669-1700)."""
+    roi, st = _defect_roi(seg_masks, params)
     roi_area = st[:, 0]
-    row_lo = st[:, 4].contiguous()
-    row_hi = st[:, 5].contiguous()
     # max_area = max(min_area, int(roi_area * 0.98)): truncation of the
     # double product; the filter compares exact 2x contour areas
     min_area = int(params.min_area)
@@ -273,13 +294,9 @@ def _defect(crops, seg_masks, params: DefectParams):
         torch.floor(roi_area.to(torch.float64) * float(params.max_area_frac)),
         min=min_area,
     ).to(torch.int32)
-    cand = median_residual_mask(
-        crops, _median_k(params), int(params.threshold), row_lo=row_lo,
-        row_hi=row_hi,
-    )
     out, area = blob_filter(
-        cand, (2 * max_area).contiguous(), min_x2=2 * min_area, roi=roi,
-        pre_open=True,
+        _candidates(crops, params, st), (2 * max_area).contiguous(),
+        min_x2=2 * min_area, roi=roi, pre_open=params.method == "threshold",
     )
     found = area > 0
     verdict = found & (area >= min_area)
@@ -316,6 +333,54 @@ def _as_u8(x, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(dev)
 
 
+def defect_intermediates(crop, seg_mask, params: DefectParams,
+                         device: str | torch.device = "cuda") -> dict:
+    """Per-stage diagnostic scalars for ONE unit, the reference's verbose
+    debug channel (indexing_ui.py:1494, :1535, :1549-1557); the port of
+    :func:`tpu_inspect.engine.defect_intermediates`.
+
+    ``crop`` and ``seg_mask`` are [H, W] uint8. Returns {'seg_area0',
+    'erode_px', 'roi_empty', 'roi_area', 'resid_area' (threshold method
+    only), 'min_area', 'max_area', 'skipped_large' (sorted int contour
+    areas a with a >= min_area and a > max_area)}; 'resid_area' and
+    'skipped_large' only when the ROI is not empty.
+    """
+    dev = resolve_device(device)
+    params = params.validated()
+    _check_defect(params)
+    crops = _as_u8(crop, dev)[None]
+    masks = _as_u8(seg_mask, dev)[None]
+    out = {
+        "seg_area0": int((masks > 0).sum()),
+        "erode_px": int(params.erode_px),
+        "min_area": int(params.min_area),
+    }
+    roi, st = _defect_roi(masks, params)
+    roi_area, _, _, has_fg = st[0, :4].tolist()
+    out["roi_empty"] = has_fg == 0
+    out["roi_area"] = int(roi_area)
+    # max_area = max(min_area, int(roi_area * 0.98)) with Python-int
+    # truncation of the double product (indexing_ui.py:1548-1549)
+    out["max_area"] = max(
+        out["min_area"], int(out["roi_area"] * float(params.max_area_frac))
+    )
+    if out["roi_empty"]:
+        return out
+    cand = _candidates(crops, params, st)
+    cand = torch.where(roi > 0, cand, torch.zeros_like(cand))
+    if params.method == "threshold":
+        cand = apply_stages(cand, open_stages(3))
+        out["resid_area"] = int((cand > 0).sum())
+    analysis = analyze_blobs(cand > 0)
+    a2 = _to_numpy(analysis.contour_area_x2[0])
+    roots = _to_numpy(analysis.is_root[0])
+    areas = (a2[roots] // 2).astype(int)  # int(contourArea): a2 is exact 2x
+    out["skipped_large"] = sorted(
+        int(a) for a in areas if a >= out["min_area"] and a > out["max_area"]
+    )
+    return out
+
+
 def segment_units(crops, seg: SegmentationParams, exclusions=(),
                   ref_centroids=None, is_reference: bool = True,
                   device: str | torch.device = "cuda") -> SegmentationResult:
@@ -325,7 +390,6 @@ def segment_units(crops, seg: SegmentationParams, exclusions=(),
     ``ref_centroids`` (array [U, 2] or {idx: (cx, cy)} dict)."""
     dev = resolve_device(device)
     seg = seg.validated()
-    _check_methods(seg, None)
     return _seg_result(*_segment(
         _as_u8(crops, dev), seg, exclusions, ref_centroids, bool(is_reference)
     ))
@@ -337,7 +401,7 @@ def detect_defects_batch(crops, seg_masks, params: DefectParams,
     :1669-1700)."""
     dev = resolve_device(device)
     params = params.validated()
-    _check_methods(None, params)
+    _check_defect(params)
     return _insp_result(*_defect(_as_u8(crops, dev), _as_u8(seg_masks, dev), params))
 
 
@@ -348,7 +412,7 @@ def inspect_units(crops, seg: SegmentationParams, defect: DefectParams,
     (run_inspection parity, indexing_ui.py:1634-1709)."""
     dev = resolve_device(device)
     seg, defect = seg.validated(), defect.validated()
-    _check_methods(seg, defect)
+    _check_defect(defect)
     crops_t = _as_u8(crops, dev)
     seg_out = _segment(crops_t, seg, exclusions, ref_centroids, bool(is_reference))
     return _seg_result(*seg_out), _insp_result(*_defect(crops_t, seg_out[0], defect))
@@ -368,7 +432,8 @@ def inspect_image(image, grid: GridParams, seg: SegmentationParams,
     dev = resolve_device(device)
     seg = seg.validated()
     dparams = (defect or DefectParams()).validated()
-    _check_methods(seg, dparams if defect is not None else None)
+    if defect is not None:
+        _check_defect(dparams)
     image_t = _as_u8(image, dev)
     origins = torch.from_numpy(grid_origins(grid)).to(dev)
     _, _, w, h = grid.base_unit

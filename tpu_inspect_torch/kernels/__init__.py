@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES: dict[str, int] = {"seg_tail": 0, "median_residual": 0, "blob_filter": 0}
+LAUNCHES: dict[str, int] = {
+    "seg_tail": 0, "median_residual": 0, "blob_filter": 0, "propagate": 0, "label": 0,
+}
 
 
 def reset_launches() -> None:
@@ -28,6 +30,15 @@ def check_planes(x: torch.Tensor, name: str) -> None:
             f"{name}: expected a contiguous [U, H, W] uint8 tensor, got "
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
+
+
+def as_planes(x: torch.Tensor, name: str) -> torch.Tensor:
+    """:func:`check_planes` for uint8 or bool planes: a bool tensor is read
+    as its uint8 bytes (0/1) without a copy. Returns the uint8 view."""
+    if x.dtype == torch.bool:
+        x = x.view(torch.uint8)
+    check_planes(x, name)
+    return x
 
 
 def check_vector(v: torch.Tensor, name: str, u: int, device) -> None:

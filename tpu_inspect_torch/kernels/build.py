@@ -1,10 +1,13 @@
 """Build the CUDA sources under ``tpu_inspect_torch/csrc`` and bind them.
 
 All ``csrc/*.cu`` files compile, at first use, into ONE shared library with
-a plain C interface::
+a plain C interface: one ``nvcc -c`` per source, all started together, then
+one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libtik_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o _build/<name>.o csrc/<name>.cu   # each, in parallel
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/libtik_<hash>.so _build/*.o
 
 (no PyTorch headers, so a build takes seconds). The file name carries a
 hash of the sources, so an edited source rebuilds and an unchanged one
@@ -41,6 +44,10 @@ _SIGNATURES = {
     # fg, roi, max_x2, table, prog, out, area, planes, blocks, U, H, W,
     # min_x2, has_roi, stream
     "tik_blob_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # seed, domain, out, parent, flags, err, U, H, W, conn8, border_seed, stream
+    "tik_propagate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # fg, out, parent, err, U, H, W, stream
+    "tik_label": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -83,26 +90,49 @@ def library_path() -> Path:
 def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
     """Compile the sources unless a library for this source hash exists.
 
-    Returns (library path, compiler output — empty when cached). Raises
-    RuntimeError with nvcc's output when the build fails.
+    Each ``.cu`` compiles in its own nvcc process, all started together;
+    ``extra_flags`` go to those compiles. Returns (library path, compiler
+    output — empty when cached). Raises RuntimeError with nvcc's output
+    when the build fails.
     """
     out = library_path()
     if out.exists() and not extra_flags:
         return out, ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [
-        nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        *extra_flags, "-o", str(tmp), *(str(p) for p in SRC_DIR.glob("*.cu")),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in srcs]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    base = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    cmds = [[*base, *extra_flags, "-c", "-o", str(o), str(p)] for p, o in zip(srcs, objs)]
+    logs = []
+    try:
+        procs = [
+            subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for c in cmds
+        ]
+        failed = []
+        for cmd, proc in zip(cmds, procs):
+            log = proc.communicate()[0]
+            logs.append(log)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{logs[-1]}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
-    return out, log
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return out, "".join(logs)
 
 
 def lib() -> ctypes.CDLL:
@@ -124,3 +154,12 @@ def check(name: str, err: int) -> None:
     runs, and only cudaGetLastError says so)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def check_bounded(name: str, err_flag) -> None:
+    """Raise if a kernel set its device error flag (a loop that hit its
+    bound: the result would be wrong, so it is never returned). Reading the
+    flag waits for the kernel."""
+    code = int(err_flag.item())
+    if code != 0:
+        raise RuntimeError(f"{name}: kernel hit its iteration bound (flag {code})")

@@ -27,8 +27,9 @@ import torch
 
 from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes, check_vector
 from tpu_inspect_torch.ops._contour_table import CONTOUR_TABLE_X2
-from tpu_inspect_torch.ops.cc import label_components
-from tpu_inspect_torch.ops.hole_fill import exterior_background
+from tpu_inspect_torch.ops.cc import label_components_plain
+from tpu_inspect_torch.ops.contour import contour_sums_x2
+from tpu_inspect_torch.ops.hole_fill import exterior_background_plain
 from tpu_inspect_torch.ops.morphology import (
     apply_stages,
     open_stages,
@@ -49,43 +50,21 @@ def _head(fg, roi, pre_open):
 
 
 def blob_filter_plain(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
-    """The plain PyTorch version of :func:`blob_filter` (same contract)."""
+    """The plain PyTorch version of :func:`blob_filter` (same contract); it
+    launches no kernel."""
     m = _head(fg, roi, pre_open)
     u, h, w = m.shape
     hw = h * w
-    dev = m.device
-    ext = exterior_background(m)
+    ext = exterior_background_plain(m)
     fill = ~ext
-    fill_lab = label_components(fill)
-    fg_lab = label_components(m)
+    fill_lab = label_components_plain(fill).to(torch.int64)
+    fg_lab = label_components_plain(m).to(torch.int64)
     # the raster-first pixel of a fill region is fg and is also the
     # raster-first pixel of the region's top-level blob
     top = m & (fg_lab == fill_lab)
-
-    # vertex (vy, vx) sees pixels (vy-1..vy, vx-1..vx); out-of-plane is
-    # exterior (state 1)
-    state = torch.where(top, 2, torch.where(ext, 1, 0)).to(torch.int64)
-    sp = torch.ones((u, h + 2, w + 2), dtype=torch.int64, device=dev)
-    sp[:, 1:-1, 1:-1] = state
-    cfg = sp[:, :-1, :-1] + 3 * sp[:, :-1, 1:] + 9 * sp[:, 1:, :-1] + 27 * sp[:, 1:, 1:]
-    tbl = torch.as_tensor(CONTOUR_TABLE_X2, dtype=torch.int64).to(dev)
-    vy = torch.arange(h + 1, device=dev, dtype=torch.int64)[None, :, None]
-    vx = torch.arange(w + 1, device=dev, dtype=torch.int64)[None, None, :]
-    contrib = tbl[cfg, 0] + tbl[cfg, 1] * vx + tbl[cfg, 2] * vy
-
-    lab_top = torch.where(top, fill_lab, -1)
-    lp = torch.full((u, h + 2, w + 2), -1, dtype=torch.int64, device=dev)
-    lp[:, 1:-1, 1:-1] = lab_top
-    attr = torch.maximum(
-        torch.maximum(lp[:, :-1, :-1], lp[:, :-1, 1:]),
-        torch.maximum(lp[:, 1:, :-1], lp[:, 1:, 1:]),
-    )
-    idx = torch.where(attr >= 0, attr, hw).reshape(u, -1)  # spill bucket hw
-    sums = torch.zeros((u, hw + 1), dtype=torch.int64, device=dev)
-    sums.scatter_add_(1, idx, contrib.reshape(u, -1))
-    a2 = sums.abs()
+    a2 = contour_sums_x2(top, ext, fill_lab).abs()
     keep = (a2 >= int(min_x2)) & (a2 <= max_x2.to(torch.int64)[:, None])
-    lab_flat = torch.where(fill, fill_lab, hw).reshape(u, hw)
+    lab_flat = torch.where(fill, fill_lab, 0).reshape(u, hw)  # off-fill: masked below
     out = keep.gather(1, lab_flat).reshape(u, h, w) & fill
     area = out.sum(dim=(1, 2)).to(torch.int32)
     return out.to(torch.uint8) * 255, area

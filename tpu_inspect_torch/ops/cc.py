@@ -1,8 +1,12 @@
-"""Connected components (plain torch ops), batched [U, H, W].
+"""Connected components, batched [U, H, W]; kernel E — min-index labeling.
 
 Port of :mod:`tpu_inspect.ops.cc`: 8-connected labels whose value is the
 linear index ``y*W + x`` of the component's raster-first pixel (BIG on
-background), and the largest component with OpenCV's tie-break.
+background, int32), and the largest component with OpenCV's tie-break.
+
+:func:`label_components` launches ``csrc/label.cu`` (the port of
+:func:`tpu_inspect.ops.cc_pallas.label_components_pallas`) for CUDA tensors
+and runs :func:`label_components_plain` for CPU tensors.
 
 Labels come from a min-label fixpoint: per iteration, a 3x3 neighbourhood
 min (8-connectivity only) and segmented cummin sweeps along rows and
@@ -15,6 +19,8 @@ run's value into a later run.
 from __future__ import annotations
 
 import torch
+
+from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build
 
 BIG = 2**30
 _K = 2**31  # > every label value; keys stay in int64
@@ -61,13 +67,37 @@ def propagate_min(init: torch.Tensor, dom: torch.Tensor, conn8: bool) -> torch.T
         lab = new
 
 
-def label_components(fg: torch.Tensor) -> torch.Tensor:
-    """fg [U, H, W] bool -> int64 labels (raster-first pixel index, BIG on
-    background), 8-connected."""
+def label_components_plain(fg: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`label_components` (same
+    contract)."""
+    fg = fg != 0
     u, h, w = fg.shape
     lin = torch.arange(h * w, device=fg.device, dtype=torch.int64).reshape(1, h, w)
     init = torch.where(fg, lin, BIG)
-    return propagate_min(init, fg, conn8=True)
+    return propagate_min(init, fg, conn8=True).to(torch.int32)
+
+
+def label_components(fg: torch.Tensor) -> torch.Tensor:
+    """fg [U, H, W] bool (or uint8, nonzero = fg) -> int32 labels: the
+    raster-first pixel index ``y*W + x`` of each 8-connected component,
+    BIG on background."""
+    fg = as_planes(fg, "label_components")
+    if fg.device.type == "cpu":
+        return label_components_plain(fg)
+    u, h, w = fg.shape
+    if u * h * w >= 2**31:
+        raise ValueError(f"label_components: {u}x{h}x{w} too large for int32 indices")
+    out = torch.empty((u, h, w), dtype=torch.int32, device=fg.device)
+    parent = torch.empty((u * h * w,), dtype=torch.int32, device=fg.device)
+    err = torch.zeros((1,), dtype=torch.int32, device=fg.device)
+    code = build.lib().tik_label(
+        fg.data_ptr(), out.data_ptr(), parent.data_ptr(), err.data_ptr(), u, h, w,
+        torch.cuda.current_stream(fg.device).cuda_stream,
+    )
+    build.check("label_components", code)
+    LAUNCHES["label"] += 1
+    build.check_bounded("label_components", err)
+    return out
 
 
 def block_rank(h: int, w: int, device) -> torch.Tensor:
@@ -85,7 +115,8 @@ def block_rank(h: int, w: int, device) -> torch.Tensor:
 
 def largest_component(fg: torch.Tensor):
     """Largest 8-connected component per unit (max area, ties by OpenCV's
-    block-raster order).
+    block-raster order), in plain torch ops: it is part of kernel A's plain
+    version and launches no kernel.
 
     Returns (mask [U,H,W] bool, stats [U, 8] int32) with the stats row
     (area, sx, sy, has_fg, row_lo, row_hi, col_lo, col_hi): sx/sy are exact
@@ -93,7 +124,7 @@ def largest_component(fg: torch.Tensor):
     u, h, w = fg.shape
     hw = h * w
     dev = fg.device
-    lab = label_components(fg).reshape(u, hw)
+    lab = label_components_plain(fg).to(torch.int64).reshape(u, hw)
     fgf = fg.reshape(u, hw)
     idx = torch.where(fgf, lab, hw)  # background -> spill bucket hw
     area = torch.zeros((u, hw + 1), dtype=torch.int64, device=dev)

@@ -21,7 +21,7 @@ import torch
 
 from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes, check_vector
 from tpu_inspect_torch.ops.cc import largest_component
-from tpu_inspect_torch.ops.hole_fill import exterior_background
+from tpu_inspect_torch.ops.hole_fill import exterior_background_plain
 from tpu_inspect_torch.ops.morphology import apply_stages, stage_program_tensor
 from tpu_inspect_torch.ops.threshold import threshold_binary_inv
 
@@ -29,14 +29,15 @@ STAT_FIELDS = ("area", "sx", "sy", "has_fg", "row_lo", "row_hi", "col_lo", "col_
 
 
 def seg_tail_plain(x, stages=(), fill=False, out_largest=False, thr=None):
-    """The plain PyTorch version of :func:`seg_tail` (same contract)."""
+    """The plain PyTorch version of :func:`seg_tail` (same contract); it
+    launches no kernel."""
     if thr is not None:
         v = threshold_binary_inv(x, thr)
     else:
         v = torch.where(x > 0, 255, 0).to(torch.uint8)
     m = apply_stages(v, stages) > 0
     if fill:
-        m = m | ~exterior_background(m)
+        m = m | ~exterior_background_plain(m)
     best, stats = largest_component(m)
     out = best if out_largest else m
     return out.to(torch.uint8) * 255, stats

@@ -70,3 +70,38 @@ def gaussian_blur_u8(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch.Tenso
         return x
     acc = _sep_int_conv(x, fixed_gaussian_kernel(k, sigma))
     return ((acc + 32768) >> 16).clamp(0, 255).to(torch.uint8)
+
+
+def _replicate_index(n: int, pad: int, device) -> torch.Tensor:
+    """Indices of a BORDER_REPLICATE padded axis (any pad, even pad > n)."""
+    return torch.arange(-pad, n + pad, device=device).clamp(0, n - 1)
+
+
+def adaptive_gaussian_mean(x: torch.Tensor, block_size: int) -> torch.Tensor:
+    """The uint8 Gaussian local mean of cv2.adaptiveThreshold (GAUSSIAN_C).
+
+    Port of :func:`tpu_inspect.ops.gaussian.adaptive_gaussian_mean`: float32
+    taps, rows then columns in sequential tap order, BORDER_REPLICATE, then
+    cvRound (half to even) and saturation to uint8. Every tap is a product
+    and a sum as two separate torch ops, so each rounds on its own as in
+    OpenCV; a fused multiply-add (``addcmul``, ``add(alpha=)``, a fused
+    kernel) would round once and break bit-exactness.
+    """
+    k = int(block_size)
+    if k <= 1:
+        return x
+    ker = gaussian_kernel_f64(k).astype(np.float32)
+    pad = k // 2
+    h, w = x.shape[-2], x.shape[-1]
+    xf = x.to(torch.float32)
+    p = xf.index_select(-1, _replicate_index(w, pad, x.device))
+    tmp = torch.zeros_like(xf)
+    for t in range(k):
+        prod = p[..., t : t + w] * float(ker[t])
+        tmp = tmp + prod
+    p = tmp.index_select(-2, _replicate_index(h, pad, x.device))
+    out = torch.zeros_like(xf)
+    for t in range(k):
+        prod = p[..., t : t + h, :] * float(ker[t])
+        out = out + prod
+    return torch.round(out).clamp(0, 255).to(torch.uint8)

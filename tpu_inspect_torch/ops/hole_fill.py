@@ -1,30 +1,30 @@
-"""Border-flood hole filling (plain torch ops), batched [U, H, W].
+"""Border-flood hole filling, batched [U, H, W].
 
 Port of :mod:`tpu_inspect.ops.hole_fill` (fill_internal_holes,
 segmentation.py:27-72): background 4-connected to the image border is
-"exterior"; every other background pixel is a hole. Reachability runs as a
-min-label fixpoint whose row/column sweeps cross whole free runs at once
-(``ops.cc.propagate_min``), so it converges in O(#bends) iterations.
+"exterior"; every other background pixel is a hole.
+:func:`exterior_background` is kernel D (``ops.flood.propagate``) in its
+border-seeded, 4-connected form on CUDA tensors;
+:func:`exterior_background_plain` is the min-label fixpoint whose row/column
+sweeps cross whole free runs at once (``ops.cc.propagate_min``), so it
+converges in O(#bends) iterations.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.ops.cc import BIG, propagate_min
+from tpu_inspect_torch.ops.flood import propagate, propagate_plain
+
+
+def exterior_background_plain(fg: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`exterior_background`."""
+    return propagate_plain(None, ~fg, conn8=False, border_seed=True)
 
 
 def exterior_background(fg: torch.Tensor) -> torch.Tensor:
     """Background 4-connected to the border. fg: [U, H, W] bool -> bool."""
-    free = ~fg
-    border = torch.zeros_like(fg)
-    border[..., 0, :] = True
-    border[..., -1, :] = True
-    border[..., :, 0] = True
-    border[..., :, -1] = True
-    init = torch.where(free, 1, BIG).to(torch.int64)
-    init = torch.where(border & free, 0, init)
-    return propagate_min(init, free, conn8=False) == 0
+    return propagate(None, (~fg).contiguous(), conn8=False, border_seed=True)
 
 
 def fill_holes(mask: torch.Tensor) -> torch.Tensor:

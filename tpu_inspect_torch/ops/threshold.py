@@ -1,6 +1,6 @@
-"""Thresholding ops: histogram, Otsu, plain binary (OpenCV parity).
+"""Thresholding ops: histogram, Otsu, plain binary, adaptive (OpenCV parity).
 
-Port of :mod:`tpu_inspect.ops.threshold` for the Otsu method. The Otsu
+Port of :mod:`tpu_inspect.ops.threshold`. The Otsu
 scan replicates OpenCV's getThreshVal_Otsu_8u recurrence exactly in
 ``torch.float64`` (epsilon guards that *skip* the normalisation, strict
 ``>`` keeping the first maximum); it is sequential over the 256 bins and
@@ -10,6 +10,8 @@ vectorised over units only — a cumsum would round differently.
 from __future__ import annotations
 
 import torch
+
+from tpu_inspect_torch.ops.gaussian import adaptive_gaussian_mean
 
 _FLT_EPSILON = 1.1920928955078125e-07  # FLT_EPSILON, as used by OpenCV
 
@@ -80,3 +82,13 @@ def threshold_binary_inv(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
 def threshold_binary(x: torch.Tensor, thr: int) -> torch.Tensor:
     """THRESH_BINARY: 255 where x > thr."""
     return torch.where(x.to(torch.int32) > int(thr), 255, 0).to(torch.uint8)
+
+
+def adaptive_threshold_inv(x: torch.Tensor, block_size: int, C: int) -> torch.Tensor:
+    """cv2.adaptiveThreshold(GAUSSIAN_C, BINARY_INV): 255 where
+    ``x - mean <= -C`` in int32, with the uint8 Gaussian local mean
+    (OpenCV's lookup-table form, ``threshold.py:148-160`` of the JAX
+    package)."""
+    mean = adaptive_gaussian_mean(x, block_size).to(torch.int32)
+    diff = x.to(torch.int32) - mean
+    return torch.where(diff <= -int(C), 255, 0).to(torch.uint8)

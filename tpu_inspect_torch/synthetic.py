@@ -89,6 +89,27 @@ def make_mold_image(
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
+def serpentine_plane(h: int, w: int) -> np.ndarray:
+    """A [H, W] uint8 0/1 plane holding one long 1-px path (port-only
+    fixture for the flood and labeling kernels).
+
+    Bands of rows (r, r+1), every 4 rows, zig-zag between their two rows so
+    that consecutive pixels touch only diagonally; a vertical segment at
+    alternating ends joins each band to the next. The path is one
+    8-connected component, and a flood that advances one pixel per round
+    needs about its whole length in rounds.
+    """
+    dom = np.zeros((h, w), np.uint8)
+    starts = list(range(0, h - 1, 4))
+    for band, r in enumerate(starts):
+        for x in range(w):
+            dom[r + (x % 2), x] = 1
+        if band + 1 < len(starts):
+            end = w - 1 if band % 2 == 0 else 0
+            dom[r : r + 6, end] = 1
+    return dom
+
+
 def standard_workload() -> dict:
     """The standard workload: the sample grid (48 units of 316x315 on a
     4096x3000 image, seed 0, defect rate 0.3) with one circle exclusion —
