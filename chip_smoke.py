@@ -8,27 +8,38 @@ Run from the repository root with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build the CUDA kernels from ``tpu_inspect_torch/csrc`` (one nvcc per
-   source, all started together, sm_90a);
-3. each of the five kernels against its plain PyTorch version on the same
-   CUDA inputs, bit-exact (tolerance 0): the standard workload's own stage
-   inputs (48 units of 315x316: the seg and ROI tails, the median residual,
-   the blob filter, Canny's strong/candidate planes for the flood, the
+2. build the seven CUDA kernels from ``tpu_inspect_torch/csrc`` (one nvcc
+   per source, all started together, sm_90a);
+3. each kernel against its plain PyTorch version on the same CUDA inputs,
+   bit-exact (tolerance 0): the standard workload's own stage inputs
+   (48 units of 315x316: the seg and ROI tails, the median residual, the
+   blob filter, Canny's strong/candidate planes for the flood, the
    inverted seg masks for its border form, candidate and fill planes for
-   the labeling, and one unit of the diagnostic pass) plus seeded random
-   planes of odd sizes with an empty and a full unit, and a long 1-px
-   serpentine;
+   the labeling, and one unit of the diagnostic pass); the whole-image
+   route's inputs (the standard image as one 1x3000x4096 unit: kernels B,
+   D and E on whole planes, kernel F on the labels of the seg mask and of
+   the ROI, kernel G on the defect tail's fill labels, top-level blobs and
+   exterior); seeded random planes of odd sizes with an empty and a full
+   unit, and a long 1-px serpentine;
 4. every path on the card, each driven with the launch counts set to 0 just
    before it and read just after, and held field by field against the same
    engine on ``device="cpu"``: ``engine.inspect_image`` for the four
    otsu/adaptive x threshold/canny method combos on the standard workload
    (the reference capture; for otsu/threshold and adaptive/canny also a
-   capture shifted by (7, -4), aligned to the first one's centroids), and
-   ``engine.defect_intermediates`` on a few units for both defect methods;
+   capture shifted by (7, -4), aligned to the first one's centroids),
+   ``engine.defect_intermediates`` on a few units for both defect methods,
+   and the whole-image route (kernels B, D, E, F and G, never A or C):
+   ``inspect_image`` with one 4096x3000 unit, ``segment_units`` (config1)
+   and ``inspect_units`` (config1defect) on the reference and the shifted
+   capture for otsu/threshold; the other combos on the card at full size,
+   held against the CPU at full size for adaptive/threshold and on a
+   centre crop for the two Canny combos;
 5. times on the card: each kernel vs its plain version (CUDA events, median
-   of repeated runs at the paths' shapes) beside its bound (the bytes the
-   call must move at 3.35 TB/s), and each combo's ``inspect_image``
-   steady-state wall ms/image (host image in, host results out).
+   of repeated runs at the paths' shapes, the whole planes included) beside
+   its bound (the bytes the call must move at 3.35 TB/s), each combo's
+   ``inspect_image`` steady-state wall ms/image (host image in, host
+   results out), the whole-image segmentation and seg+defect wall ms, and
+   a ``torch.profiler`` breakdown of each.
 
 The second-to-last lines are the card line and one JSON object with the
 per-kernel results; the last line is the JSON status object. Without CUDA,
@@ -59,6 +70,15 @@ DIAG_UNITS = 4
 # two rows, the first 16 units, as bench.py's combo gate does
 CPU_ROWS_CANNY = 2
 PROFILE_REPS = 5
+REPS_WHOLE = 10
+# the whole-image path each new kernel was ported for
+WHOLE_HOME = "whole inspect_units otsu/threshold reference"
+# every whole-image combo runs at full size on the card; for the Canny
+# combos the CPU comparison takes this centre crop (above the route's gate):
+# the crop's plain run already takes 32-35 s on an 8-core H100 host, and the
+# full plane, 3.9x its area, would take the script past half its time limit
+WHOLE_CROP = (1536, 2048)
+CROPPED_DEFECT_METHODS = {"canny"}
 
 
 def fail(msg: str) -> None:
@@ -118,16 +138,33 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def nbytes(*items) -> int:
-    """Bytes of every tensor among ``items`` (tuples are walked)."""
+    """Bytes of every tensor among ``items`` (tuples are walked; an int is
+    a byte count already)."""
     import torch
 
     total = 0
     for it in items:
         if isinstance(it, torch.Tensor):
             total += it.numel() * it.element_size()
+        elif isinstance(it, int):
+            total += it
         elif isinstance(it, (tuple, list)):
             total += nbytes(*it)
     return total
+
+
+def roi_rows_bytes(x, k: int, row_lo, row_hi) -> int:
+    """Bytes of the uint8 planes ``x`` [U, H, W] that a median residual on
+    rows [row_lo, row_hi) of each unit must read: those rows and k // 2
+    more on each side for the window, none for an empty range (every other
+    row of the output is 0 without reading the input)."""
+    import torch
+
+    _, h, w = x.shape
+    r = k // 2
+    lo, hi = row_lo.cpu().long(), row_hi.cpu().long()
+    rows = ((hi + r).clamp(max=h) - (lo - r).clamp(min=0)).clamp(min=0)
+    return int(torch.where(hi > lo, rows, 0).sum()) * w * x.element_size()
 
 
 def profile_combo(label: str, run, card: str) -> None:
@@ -180,14 +217,20 @@ def main() -> int:
     import numpy as np
 
     from tpu_inspect_torch import engine
-    from tpu_inspect_torch.config import DefectParams, SegmentationParams
+    from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
     from tpu_inspect_torch.imageio import gather_crops
     from tpu_inspect_torch.kernels import LAUNCHES, build, reset_launches
-    from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain
-    from tpu_inspect_torch.ops.canny import canny_planes
-    from tpu_inspect_torch.ops.cc import label_components, label_components_plain
+    from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain, candidate_mask
+    from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
+    from tpu_inspect_torch.ops.canny import canny_planes, canny_u8
+    from tpu_inspect_torch.ops.cc import (
+        component_stats,
+        component_stats_plain,
+        label_components,
+        label_components_plain,
+    )
     from tpu_inspect_torch.ops.flood import propagate, propagate_plain
-    from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_plain
+    from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_plain, tail_mask
     from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
     from tpu_inspect_torch.ops.median import (
         median_residual_mask,
@@ -261,6 +304,37 @@ def main() -> int:
     free1 = (~fg1).contiguous()
     fill1 = (~propagate(None, free1, False, border_seed=True)).contiguous()
 
+    # the whole-image route's planes: the standard image as ONE unit
+    # (1x3000x4096, bench.py's config1 / config1defect), otsu/threshold
+    whole = image[None].contiguous()
+    x_w = gaussian_blur_u8(whole, seg.gaussian_blur)
+    seg_pre_w = tail_mask(x_w, co, otsu_threshold(x_w))
+    free_w = (~seg_pre_w).contiguous()
+    seg_fill_w = seg_pre_w | ~propagate(None, free_w, False, border_seed=True)
+    seg_lab_w = label_components(seg_fill_w)
+    seg_mask_w = engine._segment(whole, seg, work["exclusions"], None, True)[0]
+    roi_pre_w = tail_mask(seg_mask_w, erode)
+    roi_lab_w = label_components(roi_pre_w)
+    roi_w, roi_st_w = engine._whole_tail(seg_mask_w, erode, out_largest=True)
+    row_lo_w = roi_st_w[:, 4].to(torch.int32).contiguous()
+    row_hi_w = roi_st_w[:, 5].to(torch.int32).contiguous()
+    max_x2_w = (2 * torch.clamp(
+        torch.floor(roi_st_w[:, 0].to(torch.float64) * dparams.max_area_frac),
+        min=dparams.min_area,
+    ).to(torch.int32)).contiguous()
+    m_w = candidate_mask(median_residual_mask(whole, k, t_res, row_lo_w, row_hi_w), roi_w, True)
+    free_mw = (~m_w).contiguous()
+    fill_w, top_w, ext_w = engine._fill_regions(m_w)
+    fill_plane_w = (~ext_w).contiguous()
+    lin_w = torch.arange(m_w[0].numel(), dtype=torch.int32, device=dev).reshape(m_w.shape)
+    seed_w = (m_w & (fill_w == lin_w)).contiguous()
+    # the Canny form of the defect tail on the same ROI
+    m_cw = candidate_mask(canny_u8(whole, lo_c, hi_c), roi_w, False)
+    regions_cw = engine._fill_regions(m_cw)
+    say(f"phase 3: whole-image planes 1x3000x4096: seg mask {int(seg_fill_w.sum())} px, "
+        f"ROI {int(roi_st_w[0, 0])} px, candidates {int(m_w.sum())} px (Canny "
+        f"{int(m_cw.sum())} px)")
+
     # per kernel: (label, call, inputs read) at the paths' shapes; "path"
     # cases are what one inspect_image (or one diagnostic pass) runs, the
     # others are further forms, checked and timed alongside
@@ -270,7 +344,8 @@ def main() -> int:
             ("roi form", lambda f: f(seg_masks, erode, out_largest=True), (seg_masks,)),
         ],
         "median_residual": [
-            ("roi rows", lambda f: f(crops, k, t_res, row_lo, row_hi), (crops, row_lo, row_hi)),
+            ("roi rows", lambda f: f(crops, k, t_res, row_lo, row_hi),
+             (roi_rows_bytes(crops, k, row_lo, row_hi), row_lo, row_hi)),
         ],
         "blob_filter": [
             ("roi+open", lambda f: f(cand, max_x2, min_x2=min_x2, roi=roi, pre_open=True),
@@ -302,6 +377,38 @@ def main() -> int:
             ("canny candidates 48u", lambda f: f(cand_c), (cand_c,)),
             ("fill planes 48u", lambda f: f(fill_roi), (fill_roi,)),
         ],
+        "blob_select": [
+            ("whole defect tail, Canny", lambda f: f(*regions_cw, max_x2_w, min_x2=min_x2),
+             (*regions_cw, max_x2_w)),
+        ],
+    }
+    # the whole-image route (one inspect_units call on 1x3000x4096): B, D
+    # and E on whole planes, and kernels F and G
+    whole_cases = {
+        "median_residual": [
+            ("whole plane, ROI rows", lambda f: f(whole, k, t_res, row_lo_w, row_hi_w),
+             (roi_rows_bytes(whole, k, row_lo_w, row_hi_w), row_lo_w, row_hi_w)),
+        ],
+        "propagate": [
+            ("whole seg hole fill", lambda f: f(None, free_w, False, border_seed=True), (free_w,)),
+            ("whole defect exterior", lambda f: f(None, free_mw, False, border_seed=True),
+             (free_mw,)),
+            ("whole top-level blobs", lambda f: f(seed_w, m_w, True), (seed_w, m_w)),
+        ],
+        "label": [
+            ("whole seg mask", lambda f: f(seg_fill_w), (seg_fill_w,)),
+            ("whole ROI", lambda f: f(roi_pre_w), (roi_pre_w,)),
+            ("whole fill regions", lambda f: f(fill_plane_w), (fill_plane_w,)),
+        ],
+        "cc_stats": [
+            ("whole seg mask", lambda f: f(seg_lab_w, seg_fill_w), (seg_lab_w, seg_fill_w)),
+            ("whole ROI", lambda f: f(roi_lab_w, roi_pre_w), (roi_lab_w, roi_pre_w)),
+        ],
+        "blob_select": [
+            ("whole defect tail",
+             lambda f: f(fill_w, top_w, ext_w, max_x2_w, min_x2=min_x2),
+             (fill_w, top_w, ext_w, max_x2_w)),
+        ],
     }
     kernel_fns = {
         "seg_tail": (seg_tail, seg_tail_plain),
@@ -309,6 +416,8 @@ def main() -> int:
         "blob_filter": (blob_filter, blob_filter_plain),
         "propagate": (propagate, propagate_plain),
         "label": (label_components, label_components_plain),
+        "cc_stats": (component_stats, component_stats_plain),
+        "blob_select": (blob_select, blob_select_plain),
     }
 
     def compare(name, label, got, ref):
@@ -321,7 +430,7 @@ def main() -> int:
 
     errs = {name: 0 for name in kernel_fns}
     out_bytes = {}
-    for cases in (path_cases, other_cases):
+    for cases in (path_cases, other_cases, whole_cases):
         for name, lst in cases.items():
             fast, plain = kernel_fns[name]
             for label, call, _ in lst:
@@ -349,6 +458,9 @@ def main() -> int:
         lo_r = torch.from_numpy(rng.randint(0, hh // 2, u).astype(np.int32)).to(dev)
         hi_r = torch.from_numpy(rng.randint(hh // 2, hh + 1, u).astype(np.int32)).to(dev)
         mx_r = torch.from_numpy(rng.randint(0, 2 * hh * ww, u).astype(np.int32)).to(dev)
+        full_b = (full > 0).contiguous()
+        lab_r = label_components(full_b)
+        regions_r = engine._fill_regions(full_b)
         cases = [
             ("seg_tail", "seg form", lambda f: f(gray, close_open_stages(3), fill=True, thr=thr_r)),
             ("seg_tail", "morph 7", lambda f: f(gray, close_open_stages(7), fill=True, thr=thr_r)),
@@ -366,6 +478,9 @@ def main() -> int:
             ("propagate", "border 8-conn", lambda f: f(None, full, True, border_seed=True)),
             ("label", "random", lambda f: f(full)),
             ("label", "inverted", lambda f: f((full == 0).contiguous())),
+            ("cc_stats", "random", lambda f: f(lab_r, full_b)),
+            ("blob_select", "random", lambda f: f(*regions_r, mx_r, min_x2=6)),
+            ("blob_select", "random, min 0", lambda f: f(*regions_r, mx_r, min_x2=0)),
         ]
         for name, label, call in cases:
             fast, plain = kernel_fns[name]
@@ -477,6 +592,114 @@ def main() -> int:
         say(f"phase 4: {path} on {DIAG_UNITS} units equal to device=cpu, launches "
             f"{totals} in all (last: {got})")
 
+    # the whole-image route: the standard image as one 4096x3000 unit
+    whole_np = work["image"][None]
+    whole_grid = GridParams(base_unit=(0, 0, 4096, 3000))
+    cy, cx = (3000 - WHOLE_CROP[0]) // 2, (4096 - WHOLE_CROP[1]) // 2
+    crop_np = np.ascontiguousarray(whole_np[:, cy : cy + WHOLE_CROP[0], cx : cx + WHOLE_CROP[1]])
+    sp0 = SegmentationParams().validated()
+    dp0 = DefectParams().validated()
+    excl = work["exclusions"]
+
+    def route_launches(path, launches, expect):
+        """Fail unless every kernel of ``expect`` launched on the path, and
+        kernels A and C never."""
+        launches_by_path[path] = launches
+        if (any(launches[n] < 1 for n in expect) or launches["seg_tail"]
+                or launches["blob_filter"]):
+            fail(f"{path}: not the whole-image route, launches {launches}")
+
+    def held(path, got, ref):
+        """Fail unless the card's results equal the CPU run's, field by
+        field, dtypes included."""
+        pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+        for g, r in pairs:
+            for field in dataclasses.fields(g):
+                a, b = getattr(g, field.name), getattr(r, field.name)
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    fail(f"{path}: {field.name} differs from the CPU run")
+
+    seg_kernels = ("propagate", "label", "cc_stats")
+    def_kernels = {"threshold": seg_kernels + ("median_residual", "blob_select"),
+                   "canny": seg_kernels + ("blob_select",)}
+    whole_runs = [
+        ("whole inspect_image otsu/threshold",
+         lambda d: engine.inspect_image(work["image"], whole_grid, sp0, dp0, exclusions=excl,
+                                        device=d), def_kernels["threshold"], False),
+        ("whole segment_units (config1)",
+         lambda d: engine.segment_units(whole_np, sp0, excl, device=d), seg_kernels, True),
+        (WHOLE_HOME,
+         lambda d: engine.inspect_units(whole_np, sp0, dp0, excl, device=d),
+         def_kernels["threshold"], False),
+    ]
+    for path, run, expect, seg_only in whole_runs:
+        reset_launches()
+        got = run("cuda")
+        launches = dict(LAUNCHES)
+        route_launches(path, launches, expect)
+        t0 = time.perf_counter()
+        ref = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        held(path, got, ref)
+        s_res = got if seg_only else got[0]
+        ng = "" if seg_only else f", NG {got[1].verdicts.tolist()}, area {got[1].areas.tolist()}"
+        say(f"phase 4: {path} 1x3000x4096 on the card bit-exact vs device=cpu "
+            f"({cpu_s:.1f} s on the CPU): centroid {s_res.centroids.tolist()}"
+            f"{ng}, launches {launches}")
+    ref_cent = s_res.centroid_dict()
+    path = "whole inspect_units otsu/threshold shifted"
+    shifted_np = shifted_img[None]
+    reset_launches()
+    got = engine.inspect_units(shifted_np, sp0, dp0, excl, ref_centroids=ref_cent,
+                               is_reference=False, device="cuda")
+    launches = dict(LAUNCHES)
+    route_launches(path, launches, def_kernels["threshold"])
+    t0 = time.perf_counter()
+    ref = engine.inspect_units(shifted_np, sp0, dp0, excl, ref_centroids=ref_cent,
+                               is_reference=False, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    held(path, got, ref)
+    say(f"phase 4: {path} (7, -4) on the card bit-exact vs device=cpu "
+        f"({cpu_s:.1f} s on the CPU): shift {got[0].shifts.tolist()}, NG "
+        f"{got[1].verdicts.tolist()}, launches {launches}")
+    if got[0].shifts.tolist() != [[7, -4]]:
+        fail(f"{path}: shift not recovered: {got[0].shifts.tolist()}, expected [[7, -4]]")
+    # the other combos at full size on the card; adaptive/threshold is held
+    # against the CPU at full size too, the Canny combos on the centre crop
+    # (above the gate: it takes the same route)
+    for seg_m, def_m in COMBOS[1:]:
+        sp = SegmentationParams(method=seg_m).validated()
+        dp = DefectParams(method=def_m).validated()
+        path = f"whole inspect_image {seg_m}/{def_m}"
+
+        def run(d, sp=sp, dp=dp):
+            return engine.inspect_image(work["image"], whole_grid, sp, dp, exclusions=excl,
+                                        device=d)
+
+        reset_launches()
+        got = run("cuda")
+        launches = dict(LAUNCHES)
+        route_launches(path, launches, def_kernels[def_m])
+        verdicts, areas = got[1].verdicts.tolist(), got[1].areas.tolist()
+        if def_m not in CROPPED_DEFECT_METHODS:
+            t0 = time.perf_counter()
+            ref = run("cpu")
+            cpu_s = time.perf_counter() - t0
+            held(path, got, ref)
+            say(f"phase 4: {path} 1x3000x4096 on the card bit-exact vs device=cpu "
+                f"({cpu_s:.1f} s on the CPU): NG {verdicts}, area {areas}, launches {launches}")
+            continue
+        reset_launches()
+        got = engine.inspect_units(crop_np, sp, dp, excl, device="cuda")
+        route_launches(f"{path} crop", dict(LAUNCHES), def_kernels[def_m])
+        t0 = time.perf_counter()
+        ref = engine.inspect_units(crop_np, sp, dp, excl, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        held(f"{path} crop", got, ref)
+        say(f"phase 4: {path} 1x3000x4096 on the card (NG {verdicts}, area "
+            f"{areas}, launches {launches}); its centre crop "
+            f"{WHOLE_CROP[0]}x{WHOLE_CROP[1]} bit-exact vs device=cpu ({cpu_s:.1f} s on the CPU)")
+
     # ---- phase 5: times ----------------------------------------------------
     def timed(name, lst):
         fast, plain = kernel_fns[name]
@@ -490,7 +713,8 @@ def main() -> int:
                 f"{bound * 1e3:.2f} us) on {card}")
         return rows
 
-    times = {name: (timed(name, path_cases[name]), timed(name, other_cases[name]))
+    times = {name: tuple(timed(name, cases.get(name, []))
+                         for cases in (path_cases, other_cases, whole_cases))
              for name in kernel_fns}
     otsu_ms = cuda_ms(lambda: otsu_threshold(x), REPS_KERNEL)
     say(f"phase 5: otsu_threshold (host f64 scan) {otsu_ms:.4f} ms on {card}")
@@ -524,6 +748,27 @@ def main() -> int:
             walls.append((time.perf_counter() - t0) * 1e3)
         say(f"phase 5: defect_intermediates {def_m} {statistics.median(walls):.4f} ms "
             f"per unit (median of {REPS_E2E}, wall) on {card}")
+    # the whole-image configurations: segmentation (config1; the centroid
+    # stats included) and seg+defect (config1defect), one 4096x3000 unit
+    whole_e2e = {
+        "single_unit_4096x3000_segmentation_ms":
+            lambda: engine.segment_units(whole_np, sp0, excl),
+        "single_unit_4096x3000_seg_defect_ms":
+            lambda: engine.inspect_units(whole_np, sp0, dp0, excl),
+    }
+    for label, run in whole_e2e.items():
+        run()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(REPS_WHOLE):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        e2e[label] = statistics.median(walls)
+        say(f"phase 5: {label} steady state {e2e[label]:.4f} ms (median of {REPS_WHOLE}, "
+            f"min {min(walls):.4f}, wall incl. H2D/D2H) on {card}")
+    profile_combo("whole-image seg+defect (inspect_units, otsu/threshold)",
+                  whole_e2e["single_unit_4096x3000_seg_defect_ms"], card)
 
     sources = {
         "seg_tail": ("tpu_inspect_torch/csrc/seg_tail.cu", "tpu_inspect/ops/fused_pallas.py:145"),
@@ -533,32 +778,52 @@ def main() -> int:
                         "tpu_inspect/ops/blob_pallas.py:403"),
         "propagate": ("tpu_inspect_torch/csrc/flood.cu", "tpu_inspect/ops/flood_pallas.py:144"),
         "label": ("tpu_inspect_torch/csrc/label.cu", "tpu_inspect/ops/cc_pallas.py:501"),
+        "cc_stats": ("tpu_inspect_torch/csrc/cc_stats.cu", "tpu_inspect/ops/cc_pallas.py:602"),
+        "blob_select": ("tpu_inspect_torch/csrc/blob_select.cu",
+                        "tpu_inspect/ops/cc_pallas.py:689"),
+    }
+    # further TPU kernels whose function a kernel serves (whole-image
+    # counterparts of tiled TPU kernels, and same-function resident ones)
+    also_replaces = {
+        "median_residual": ["tpu_inspect/ops/median_pallas.py:539"],
+        "propagate": ["tpu_inspect/ops/flood_pallas.py:371", "tpu_inspect/ops/flood_pallas.py:326"],
+        "cc_stats": ["tpu_inspect/ops/cc_pallas.py:318"],
+        "blob_select": ["tpu_inspect/ops/cc_pallas.py:767", "tpu_inspect/ops/blob_pallas.py:132"],
     }
     # the path each kernel was ported for: its launches and times per image
     # (per diagnostic pass of one unit for the labeling)
     home_path = {
         "seg_tail": "otsu/threshold reference", "median_residual": "otsu/threshold reference",
         "blob_filter": "otsu/threshold reference", "propagate": "otsu/canny reference",
-        "label": "defect_intermediates/canny",
+        "label": "defect_intermediates/canny", "cc_stats": WHOLE_HOME,
+        "blob_select": WHOLE_HOME,
     }
+
+    def summed(rows, path):
+        bound = sum(r["bound_ms"] for r in rows)
+        return {"path": path, "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": bound,
+                "bound_us": bound * 1e3}
+
     entries = []
     for name in kernel_fns:
-        path_rows, other_rows = times[name]
-        bound = sum(r["bound_ms"] for r in path_rows)
-        launches = launches_by_path[home_path[name]][name]
-        entries.append({
+        path_rows, other_rows, whole_rows = times[name]
+        home_rows = whole_rows if home_path[name] == WHOLE_HOME else path_rows
+        entry = {
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "path": home_path[name],
-            "launches": launches,
+            "replaces": sources[name][1], "also_replaces": also_replaces.get(name, []),
+            "launches": launches_by_path[home_path[name]][name],
             "launches_by_path": {p: c[name] for p, c in launches_by_path.items()},
             "max_abs_err": errs[name],
-            "ms": sum(r["ms"] for r in path_rows),
-            "plain_ms": sum(r["plain_ms"] for r in path_rows),
-            "bound_ms": bound, "bound_us": bound * 1e3, "bound_by": "bytes",
-            "library_ms": None,
-            "forms": path_rows + other_rows,
-        })
-    say(f"phase 5: inspect_image ms/image by combo {json.dumps(e2e)}")
+            **summed(home_rows, home_path[name]),
+            "bound_by": "bytes", "library_ms": None,
+            "forms": path_rows + other_rows + whole_rows,
+        }
+        if whole_rows and home_rows is not whole_rows:
+            entry["whole"] = {**summed(whole_rows, WHOLE_HOME),
+                              "launches": launches_by_path[WHOLE_HOME][name]}
+        entries.append(entry)
+    say(f"phase 5: ms per call by path {json.dumps(e2e)} on {card}")
     say(card)
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {

@@ -17,15 +17,21 @@ from tpu_inspect_torch import config as tcfg
 from tpu_inspect_torch import engine as teng
 from tpu_inspect_torch.kernels import LAUNCHES, reset_launches
 from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain
+from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
 from tpu_inspect_torch.ops.canny import canny_planes
-from tpu_inspect_torch.ops.cc import label_components, label_components_plain
+from tpu_inspect_torch.ops.cc import (
+    component_stats,
+    component_stats_plain,
+    label_components,
+    label_components_plain,
+)
 from tpu_inspect_torch.ops.flood import propagate, propagate_plain
 from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_plain
 from tpu_inspect_torch.ops.median import median_residual_mask, median_residual_mask_plain
 from tpu_inspect_torch.ops.morphology import close_open_stages, rect_erode_stages
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
-from tpu_inspect_torch.synthetic import make_mold_image, serpentine_plane
+from tpu_inspect_torch.synthetic import make_mold_image, serpentine_plane, standard_workload
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +159,88 @@ def test_inspect_image_cuda_matches_cpu(cuda, method):
         np.testing.assert_array_equal(getattr(g_seg, f), getattr(c_seg, f), err_msg=f)
     for f in ("defect_masks", "valid", "areas", "verdicts"):
         np.testing.assert_array_equal(getattr(g_insp, f), getattr(c_insp, f), err_msg=f)
+
+
+@pytest.mark.parametrize("shape", [(4, 37, 53), (2, 64, 41)])
+def test_component_stats_matches_plain(cuda, shape):
+    rng = np.random.RandomState(11)
+    fg = _planes(rng, shape, 0.55, cuda) > 0
+    fg[0] = False  # empty unit
+    fg[1] = True  # full unit
+    if shape[0] > 2:
+        fg[2] = False
+        fg[2, 2, 28] = fg[2, 3, 0] = True  # an equal-area tie in block order
+    labels = label_components(fg)
+    reset_launches()
+    got = component_stats(labels, fg)
+    assert LAUNCHES["cc_stats"] == 1
+    _assert_equal(got, component_stats_plain(labels, fg))
+    assert got[1].dtype == torch.int64
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 64, 41)])
+def test_blob_select_matches_plain(cuda, shape):
+    rng = np.random.RandomState(12)
+    fg = _planes(rng, shape, 0.6, cuda) > 0
+    fg[0] = False
+    fg[-1, 4:24, 4:24] = True  # a ring holding a nested blob
+    fg[-1, 7:21, 7:21] = False
+    fg[-1, 11:16, 11:16] = True
+    fill_labels, top, ext = teng._fill_regions(fg)
+    max_x2 = torch.tensor([50, 4000, 722][: shape[0]], dtype=torch.int32, device=cuda)
+    for min_x2 in (0, 6, 32):
+        reset_launches()
+        got = blob_select(fill_labels, top, ext, max_x2, min_x2=min_x2)
+        assert LAUNCHES["blob_select"] == 1
+        _assert_equal(got, blob_select_plain(fill_labels, top, ext, max_x2, min_x2=min_x2))
+
+
+def test_whole_plane_kernels_match_plain(cuda):
+    """Kernels B, D, E, F and G on one whole 1x3000x4096 capture."""
+    image = torch.from_numpy(standard_workload()["image"][None]).to(cuda)
+    fg = (image < 140).contiguous()  # the 48 mold surfaces
+    lo = torch.tensor([200], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([2800], dtype=torch.int32, device=cuda)
+    _assert_equal(median_residual_mask(image, 21, 24, lo, hi),
+                  median_residual_mask_plain(image, 21, 24, lo, hi))
+    free = (~fg).contiguous()
+    _assert_equal(propagate(None, free, False, border_seed=True),
+                  propagate_plain(None, free, False, border_seed=True))
+    seeds = torch.zeros_like(fg)
+    seeds[0, 1500, ::64] = True
+    _assert_equal(propagate(seeds, fg, True), propagate_plain(seeds, fg, True))
+    for plane in (fg, free):  # the background is one huge component
+        labels = label_components(plane)
+        _assert_equal(labels, label_components_plain(plane))
+        mask, stats = component_stats(labels, plane)
+        _assert_equal((mask, stats), component_stats_plain(labels, plane))
+    assert stats[0, 1] > 2**31
+    fill_labels, top, ext = teng._fill_regions(fg)
+    max_x2 = torch.tensor([2 * 60_000], dtype=torch.int32, device=cuda)
+    out, area = blob_select(fill_labels, top, ext, max_x2, min_x2=40)
+    _assert_equal((out, area), blob_select_plain(fill_labels, top, ext, max_x2, min_x2=40))
+    assert int(area[0]) > 0
+
+
+@pytest.mark.parametrize("method", ["otsu/threshold", "adaptive/canny"])
+def test_whole_route_cuda_matches_cpu(cuda, method, monkeypatch):
+    monkeypatch.setattr(teng, "WHOLE_MIN_PX", 1000)
+    grid = tcfg.GridParams(base_unit=(6, 5, 128, 96))
+    img = make_mold_image(grid, (108, 142), seed=3, defect_rate=1.0)
+    seg_m, def_m = method.split("/")
+    seg = tcfg.SegmentationParams(method=seg_m)
+    dp = tcfg.DefectParams(method=def_m, min_area=3)
+    excl = [{"shape": "circle", "cx": 40, "cy": 30, "r": 9}]
+    reset_launches()
+    g_seg, g_insp = teng.inspect_image(img, grid, seg, dp, exclusions=excl, device=cuda)
+    assert LAUNCHES["cc_stats"] == 2 and LAUNCHES["blob_select"] == 1
+    assert LAUNCHES["seg_tail"] == 0 and LAUNCHES["blob_filter"] == 0
+    c_seg, c_insp = teng.inspect_image(img, grid, seg, dp, exclusions=excl, device="cpu")
+    for f in ("masks", "centroids", "centroid_valid", "shifts"):
+        a, b = getattr(g_seg, f), getattr(c_seg, f)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    for f in ("defect_masks", "valid", "areas", "verdicts"):
+        a, b = getattr(g_insp, f), getattr(c_insp, f)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b, err_msg=f)

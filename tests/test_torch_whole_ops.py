@@ -1,0 +1,208 @@
+"""Kernels F, G and B of the whole-image route vs the JAX whole-image functions.
+
+The route of ``tpu_inspect_torch.engine`` (tested against the JAX engine in
+``test_torch_whole.py``) takes its largest-component stats from kernel F
+(``ops.cc.component_stats``), its Green's filter and paint from kernel G
+(``ops.blob_select.blob_select``) and its candidates from kernel B on the
+whole plane. Here their plain versions (the CPU) are held with tolerance 0,
+dtypes included, against the JAX package's whole-image functions:
+``cc.largest_component_sums`` and ``largest_component_sums_tiled`` (its tile
+tables in Pallas interpret mode too) for F, ``contour.filter_and_select``
+and ``_green_filter_tiled`` + its seed flood for G, and
+``median_residual_mask_tiled`` in interpret mode for B.
+"""
+
+import functools
+import importlib
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from tpu_inspect.ops import canny as jcanny
+from tpu_inspect.ops import cc as jcc
+from tpu_inspect.ops import contour as jcontour
+from tpu_inspect.ops import hole_fill as jfill
+from tpu_inspect.synthetic import random_blob_mask
+
+from tpu_inspect_torch import engine as teng
+from tpu_inspect_torch.ops.blob_select import blob_select
+from tpu_inspect_torch.ops.cc import component_stats, label_components
+from tpu_inspect_torch.ops.median import median_residual_mask
+
+_ORIG_PALLAS_CALL = pl.pallas_call
+
+
+def _interpreted(*args, **kwargs):
+    kwargs.setdefault("interpret", True)
+    return _ORIG_PALLAS_CALL(*args, **kwargs)
+
+
+@pytest.fixture(scope="module")
+def interp():
+    """cc_pallas and median_pallas reloaded with pallas_call interpreted."""
+    with mock.patch.object(pl, "pallas_call", _interpreted):
+        import tpu_inspect.ops.cc_pallas as ccp
+        import tpu_inspect.ops.median_pallas as mp
+
+        for m in (ccp, mp):
+            importlib.reload(m)
+        yield dict(ccp=ccp, mp=mp)
+    for m in (ccp, mp):
+        importlib.reload(m)
+
+
+def _stat_planes():
+    """[4, 40, 44] bool: random blobs cut across 16x20 tiles, an equal-area
+    tie that only OpenCV's block-raster order resolves, an empty unit."""
+    fg = np.zeros((4, 40, 44), bool)
+    fg[0] = random_blob_mask(40, 44, seed=7, n_blobs=4) > 0
+    fg[1] = random_blob_mask(40, 44, seed=8, n_blobs=4) > 0
+    fg[1, :, 20:22] = False  # split fragments across tile columns
+    # pixel raster puts (2, 28) first, the 2x2-block raster (3, 0)
+    fg[2, 2, 28] = fg[2, 3, 0] = True
+    return fg
+
+
+def _check_stats(mask, stats, fg, ref):
+    ref_mask, area, sx, sy, has = (np.asarray(r) for r in ref)
+    np.testing.assert_array_equal(mask.numpy(), ref_mask)
+    assert stats.dtype == torch.int64
+    for col, r in zip(range(4), (area, sx, sy, has)):
+        np.testing.assert_array_equal(stats[:, col].numpy(), r.astype(np.int64))
+    _, h, w = fg.shape
+    for u, m in enumerate(ref_mask):
+        ys, xs = np.nonzero(m)
+        ext = (ys.min(), ys.max() + 1, xs.min(), xs.max() + 1) if ys.size else (h, 0, w, 0)
+        assert tuple(stats[u, 4:].tolist()) == ext
+
+
+def test_component_stats_plain_matches_jax_whole_image_functions(interp):
+    fg = _stat_planes()
+    fg_t = torch.from_numpy(fg)
+    mask, stats = component_stats(label_components(fg_t), fg_t)
+    assert mask[2, 3, 0] and not mask[2, 2, 28]
+    jfg = jnp.asarray(fg)
+    jlab = jcc.label_components(jfg)
+    # jit: one compile instead of hundreds of op-by-op dispatches
+    _check_stats(mask, stats, fg, jax.jit(jcc.largest_component_sums)(jfg))
+    for use_tables in (False, True):  # True: the tile tables, interpreted
+        tiled = functools.partial(jcc.largest_component_sums_tiled, tile_hw=(16, 20),
+                                  use_tables=use_tables)
+        _check_stats(mask, stats, fg, jax.jit(tiled)(jfg, jlab))
+
+
+def test_component_stats_plain_int64_sums():
+    fg = np.ones((1, 64, 40000), bool)
+    fg_t = torch.from_numpy(fg)
+    mask, stats = component_stats(label_components(fg_t), fg_t)
+    assert stats[0, 1] == 64 * (39999 * 40000 // 2) > 2**31
+    ref = jax.jit(jcc.largest_component_sums)(jnp.asarray(fg))
+    assert np.asarray(ref[2]).dtype == np.int64
+    _check_stats(mask, stats, fg, ref)
+
+
+def _blob_planes():
+    """[3, 40, 44] uint8 candidates and max_x2 [3]: nested blobs, 2x
+    contour areas exactly at min_x2 (8) and max_x2, random blobs cut across
+    16x16 vertex tiles, edge-touching blobs."""
+    c = np.zeros((3, 40, 44), np.uint8)
+    for u in (0, 1):
+        c[u, 2:22, 2:22] = 255  # a ring (2x area 722) ...
+        c[u, 5:19, 5:19] = 0
+        c[u, 9:14, 9:14] = 255  # ... holding a nested blob
+        c[u, 26:31, 4:9] = 255  # 5x5: 2x area 32
+        c[u, 26:29, 14:17] = 255  # 3x3: 2x area 8
+        c[u, 34:36, 20:22] = 255  # 2x2: 2x area 2
+        c[u, 30:40, 38:44] = 255  # touches the right and bottom edges
+    c[2] = random_blob_mask(40, 44, seed=5, n_blobs=6)
+    # unit 0: 5x5 kept exactly at max, ring dropped; unit 1: all but the 2x2
+    return c, np.array([32, 10_000, 400], np.int32)
+
+
+def test_blob_select_plain_matches_jax_whole_image_filter(interp):
+    cand, max_x2 = _blob_planes()
+    min_x2 = 8
+    out, area = teng._whole_blobs(torch.from_numpy(cand), torch.from_numpy(max_x2),
+                                  min_x2=min_x2)
+    out, area = out.numpy(), area.numpy()
+    assert area.dtype == np.int32
+    assert out[0, 27, 5] == 255 and out[0, 27, 15] == 255, "kept at max_x2 and min_x2"
+    assert out[0, 3, 3] == 0 and out[0, 34, 20] == 0, "dropped above max_x2, below min_x2"
+    assert out[1, 7, 7] == 255 and out[1, 10, 10] == 255, "the ring's hole and nested blob"
+
+    fg = jnp.asarray(cand > 0)
+    select = jax.jit(functools.partial(jcontour.filter_and_select, min_area_x2=min_x2))
+    ref, found = select(fg, max_area_x2=jnp.asarray(max_x2))
+    np.testing.assert_array_equal(out, np.where(np.asarray(ref), 255, 0).astype(np.uint8))
+    np.testing.assert_array_equal(area, np.asarray(ref).sum(axis=(1, 2)))
+    np.testing.assert_array_equal(area > 0, np.asarray(found))
+
+    for use_tables in (False, True):  # True: the tile tables, interpreted
+        tiled = functools.partial(_tiled_filter, min_x2=min_x2, use_tables=use_tables)
+        painted, found = jax.jit(tiled)(fg, jnp.asarray(max_x2))
+        np.testing.assert_array_equal(out, np.where(painted, 255, 0).astype(np.uint8))
+        np.testing.assert_array_equal(area > 0, np.asarray(found))
+
+
+def _tiled_filter(fg, max_x2, *, min_x2, use_tables):
+    """The JAX package's whole-image Green's filter (``_green_filter_tiled``
+    on 16x16 vertex tiles) and the seed flood of ``filter_and_select``
+    (``contour.py:684-698``)."""
+    _, h, w = fg.shape
+    ext = jfill.exterior_background(fg)
+    fill_labels = jcc.label_components(~ext)
+    top = fg & (jcc.label_components(fg) == fill_labels)
+    attr, contrib = jcontour._vertex_attribution(top, ext, fill_labels)
+    bias = 1 << int(np.ceil(np.log2(h + w + 4)))
+    kv, found = jcontour._green_filter_tiled(
+        attr, contrib, h * w, bias, min_x2, max_x2, tile_vhw=(16, 16),
+        use_tables=use_tables,
+    )
+    seeds = top & (kv[:, :-1, :-1] | kv[:, :-1, 1:] | kv[:, 1:, :-1] | kv[:, 1:, 1:])
+    return jcanny._propagate8(seeds, ~ext), found
+
+
+def test_median_residual_whole_plane_matches_tiled(interp):
+    mp = interp["mp"]
+    rng = np.random.RandomState(2)
+    x = rng.randint(0, 256, (2, 70, 81), dtype=np.uint8)
+    k, thr = 9, 24
+    bounds = [(10, 55, 5, 60), (25, 60, 50, 81)]  # ROI rows and columns
+    roi = np.zeros(x.shape, bool)
+    for u, (rl, rh, cl, ch) in enumerate(bounds):
+        roi[u, rl:rh, cl:ch] = True
+    col = [np.asarray([b[j] for b in bounds], np.int32) for j in range(4)]
+    got = median_residual_mask(
+        torch.from_numpy(x), k, thr, torch.from_numpy(col[0]), torch.from_numpy(col[1])
+    ).numpy()
+    with mock.patch.object(mp, "_ITEM_ENVELOPE", (40, 44)):
+        ref = np.asarray(mp.median_residual_mask_tiled(
+            jnp.asarray(x), k, thr, batch=6, row_lo=jnp.asarray(col[0]),
+            row_hi=jnp.asarray(col[1]), col_lo=jnp.asarray(col[2]),
+            col_hi=jnp.asarray(col[3]),
+        ))
+    assert (got[roi] > 0).any() and (got[roi] == 0).any()
+    # rows and columns outside the ROI are unwritten in the JAX function
+    np.testing.assert_array_equal(np.where(roi, got, 0), np.where(roi, ref, 0))
+    assert not got[:, :10].any(), "rows above every unit's ROI rows are 0"
+
+
+def test_route_kernels_reject_bad_planes():
+    fg = torch.zeros((1, 4, 5), dtype=torch.bool)
+    lab = torch.zeros((1, 4, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        component_stats(lab.to(torch.int64), fg)
+    with pytest.raises(ValueError, match="int32"):
+        component_stats(lab[:, :3], fg)
+    max_x2 = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="ext must match"):
+        blob_select(lab, fg, torch.zeros((1, 4, 6), dtype=torch.bool), max_x2, min_x2=0)
+    with pytest.raises(ValueError, match="max_x2"):
+        blob_select(lab, fg, fg, max_x2.to(torch.int64), min_x2=0)
+    out, area = blob_select(lab, fg, ~fg, max_x2, min_x2=0)
+    assert out.dtype == torch.uint8 and not out.any() and area.tolist() == [0]

@@ -12,10 +12,24 @@ per-unit masks, defect blobs and X/O verdicts::
     filter (kernel C: ROI AND, 3x3 open for the residual, contourArea
     filter, filled paint) -> verdicts
 
+The whole-image route: a unit of more than ``WHOLE_MIN_PX`` pixels (a
+whole 4096x3000 capture, ``bench.py``'s config1 and config1defect), or one
+too large for kernel A's or C's int32 sums, takes the port of the JAX
+package's unfused whole-plane path instead of kernels A and C, on both
+devices alike (:func:`_whole_route`):
+
+    seg tail: x <= thr (or x > 0), close+open (torch ops), hole fill
+    (kernel D, border form), labels (kernel E), largest-CC mask and int64
+    stats (kernel F); ROI tail: the same with the erode and no fill;
+    defect tail: candidates (kernel B on the whole plane, or Canny), ROI
+    AND, 3x3 open (torch ops), exterior (kernel D), fill labels (kernel E),
+    top-level blobs (kernel D seeded with each fill region's first pixel),
+    Green's filter and filled paint (kernel G)
+
 :func:`defect_intermediates` is the per-unit diagnostic pass; its contour
 analysis runs kernel D (exterior flood) and kernel E (labeling, twice).
 
-Every stage is bit-exact vs the JAX package. On ``device="cuda"`` the five
+Every stage is bit-exact vs the JAX package. On ``device="cuda"`` the seven
 kernels are the hand-written CUDA sources in ``csrc/``; on ``device="cpu"``
 their plain PyTorch versions run. Median windows with k*k >= 2048 raise
 ``NotImplementedError`` (ROADMAP.md queue B).
@@ -32,12 +46,16 @@ from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParam
 from tpu_inspect_torch.device import resolve_device
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
-from tpu_inspect_torch.ops.blob import blob_filter
+from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_fits, candidate_mask
+from tpu_inspect_torch.ops.blob_select import blob_select
 from tpu_inspect_torch.ops.canny import canny_u8
+from tpu_inspect_torch.ops.cc import component_stats, label_components
 from tpu_inspect_torch.ops.common import as_odd
 from tpu_inspect_torch.ops.contour import analyze_blobs
-from tpu_inspect_torch.ops.fused import seg_tail
+from tpu_inspect_torch.ops.flood import propagate
+from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_fits, tail_mask
 from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
+from tpu_inspect_torch.ops.hole_fill import exterior_background
 from tpu_inspect_torch.ops.median import median_residual_mask
 from tpu_inspect_torch.ops.morphology import (
     apply_stages,
@@ -210,6 +228,58 @@ def _morph_k(seg: SegmentationParams) -> int:
     return max(1, int(seg.morph_kernel))
 
 
+# Units above this many pixels take the whole-image route. A 315x316 grid
+# unit (99.5 kpx) stays on kernels A and C, whose one CTA per unit suits
+# many small units; a whole 4096x3000 capture (12.3 Mpx) is one unit, which
+# would run on one of the card's 132 SMs there. A fixed gate, not a
+# setting: only the tests lower it, to drive the route at small sizes.
+WHOLE_MIN_PX = 1 << 20
+
+
+def _whole_route(h: int, w: int) -> bool:
+    """Whether an h x w unit takes the whole-image route: above
+    ``WHOLE_MIN_PX`` pixels, or too large for kernel A's or C's int32 sums.
+    A fixed gate on the shape, the same on every device."""
+    return h * w > WHOLE_MIN_PX or not (seg_tail_fits(h, w) and blob_filter_fits(h, w))
+
+
+def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None):
+    """:func:`ops.fused.seg_tail`'s contract on the whole-image route
+    (kernels D, E and F on whole planes), with int64 stats: the port of the
+    JAX package's ``raw_segment`` + ``largest_component_sums`` and
+    ``_defect_roi_fallback``."""
+    m = tail_mask(x, stages, thr)
+    if fill:
+        m = m | ~exterior_background(m)
+    best, stats = component_stats(label_components(m), m)
+    out = best if out_largest else m
+    return out.to(torch.uint8) * 255, stats
+
+
+def _fill_regions(m: torch.Tensor):
+    """(fill labels int32, top-level blob pixels bool, exterior bool) of a
+    [U, H, W] bool candidate plane: kernel D for the exterior; kernel E for
+    the fill labels; kernel D again, seeded with each fill region's
+    raster-first pixel (always a pixel of its top-level blob), for the
+    top-level blobs through the candidates, 8-connected
+    (``contour.py:596-602``)."""
+    u, h, w = m.shape
+    ext = exterior_background(m)
+    fill_labels = label_components(~ext)
+    lin = torch.arange(h * w, dtype=torch.int32, device=m.device).reshape(1, h, w)
+    top = propagate(m & (fill_labels == lin), m, conn8=True)
+    return fill_labels, top, ext
+
+
+def _whole_blobs(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
+    """:func:`ops.blob.blob_filter`'s contract on the whole-image route (the
+    port of ``contour.filter_and_select`` at whole-image size): the fill
+    regions (:func:`_fill_regions`), then kernel G for the Green's filter
+    and the paint."""
+    m = candidate_mask(fg, roi, pre_open)
+    return blob_select(*_fill_regions(m), max_x2, min_x2=min_x2)
+
+
 def _segment(crops, seg, exclusions, ref_centroids, is_reference):
     """Segmentation pass on [U, H, W] crops -> (mask u8, sums [U,3] int64,
     has_fg [U] bool, shifts [U,2] int32), all on the crops' device."""
@@ -228,7 +298,8 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference):
         x, thr = adaptive_threshold_inv(x, bs, int(seg.adapt_C)), None
     else:
         thr = otsu_threshold(x)
-    mask, st = seg_tail(x, stages=stages, fill=True, out_largest=False, thr=thr)
+    tail = _whole_tail if _whole_route(h, w) else seg_tail
+    mask, st = tail(x, stages=stages, fill=True, out_largest=False, thr=thr)
     area, sx, sy = st[:, 0], st[:, 1], st[:, 2]
     has_fg = st[:, 3] > 0
 
@@ -263,8 +334,10 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference):
 
 def _defect_roi(seg_masks, params: DefectParams):
     """ROI: binarize, (2n+1)^2 erode, largest 8-CC (holes kept) -> (roi u8,
-    stats [U, 8] int32) (indexing_ui.py:1480-1516)."""
-    return seg_tail(
+    stats [U, 8], int32 from kernel A, int64 on the whole-image route)
+    (indexing_ui.py:1480-1516)."""
+    tail = _whole_tail if _whole_route(*seg_masks.shape[1:]) else seg_tail
+    return tail(
         seg_masks, stages=rect_erode_stages(params.erode_px), fill=False,
         out_largest=True,
     )
@@ -277,8 +350,9 @@ def _candidates(crops, params: DefectParams, roi_stats):
     if params.method == "canny":
         return canny_u8(crops, max(1, thr // 2), max(2, thr))
     return median_residual_mask(
-        crops, _median_k(params), thr, row_lo=roi_stats[:, 4].contiguous(),
-        row_hi=roi_stats[:, 5].contiguous(),
+        crops, _median_k(params), thr,
+        row_lo=roi_stats[:, 4].to(torch.int32).contiguous(),
+        row_hi=roi_stats[:, 5].to(torch.int32).contiguous(),
     )
 
 
@@ -294,7 +368,8 @@ def _defect(crops, seg_masks, params: DefectParams):
         torch.floor(roi_area.to(torch.float64) * float(params.max_area_frac)),
         min=min_area,
     ).to(torch.int32)
-    out, area = blob_filter(
+    filt = _whole_blobs if _whole_route(*crops.shape[1:]) else blob_filter
+    out, area = filt(
         _candidates(crops, params, st), (2 * max_area).contiguous(),
         min_x2=2 * min_area, roi=roi, pre_open=params.method == "threshold",
     )

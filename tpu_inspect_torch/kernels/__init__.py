@@ -12,6 +12,7 @@ import torch
 
 LAUNCHES: dict[str, int] = {
     "seg_tail": 0, "median_residual": 0, "blob_filter": 0, "propagate": 0, "label": 0,
+    "cc_stats": 0, "blob_select": 0,
 }
 
 
@@ -48,4 +49,15 @@ def check_vector(v: torch.Tensor, name: str, u: int, device) -> None:
         raise ValueError(
             f"{name}: expected a contiguous [{u}] int32 tensor on {device}, got "
             f"{v.dtype} {tuple(v.shape)} on {v.device}"
+        )
+
+
+def check_labels(labels: torch.Tensor, like: torch.Tensor, name: str) -> None:
+    """Raise unless ``labels`` is a contiguous int32 tensor of ``like``'s
+    shape on ``like``'s device (a label plane a kernel reads)."""
+    if (labels.dtype != torch.int32 or labels.shape != like.shape
+            or not labels.is_contiguous() or labels.device != like.device):
+        raise ValueError(
+            f"{name}: expected a contiguous int32 {tuple(like.shape)} tensor on "
+            f"{like.device}, got {labels.dtype} {tuple(labels.shape)} on {labels.device}"
         )

@@ -48,6 +48,11 @@ _SIGNATURES = {
     "tik_propagate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # fg, out, parent, err, U, H, W, stream
     "tik_label": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # labels, fg, mask, stats, slots, units, err, U, H, W, stream
+    "tik_component_stats": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # fill_labels, top, ext, max_x2, table, out, area, sums, err, U, H, W,
+    # min_x2, stream
+    "tik_blob_select": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -158,8 +163,11 @@ def check(name: str, err: int) -> None:
 
 def check_bounded(name: str, err_flag) -> None:
     """Raise if a kernel set its device error flag (a loop that hit its
-    bound: the result would be wrong, so it is never returned). Reading the
-    flag waits for the kernel."""
+    bound, or a label outside its plane: the result would be wrong, so it is
+    never returned). Reading the flag waits for the kernel."""
     code = int(err_flag.item())
     if code != 0:
-        raise RuntimeError(f"{name}: kernel hit its iteration bound (flag {code})")
+        raise RuntimeError(
+            f"{name}: kernel set its error flag {code} (1, 2: an iteration bound; "
+            "3: a label outside its plane)"
+        )

@@ -21,14 +21,11 @@ runs :func:`blob_filter_plain` for CPU tensors.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes, check_vector
-from tpu_inspect_torch.ops._contour_table import CONTOUR_TABLE_X2
+from tpu_inspect_torch.ops.blob_select import blob_select_plain, contour_table
 from tpu_inspect_torch.ops.cc import label_components_plain
-from tpu_inspect_torch.ops.contour import contour_sums_x2
 from tpu_inspect_torch.ops.hole_fill import exterior_background_plain
 from tpu_inspect_torch.ops.morphology import (
     apply_stages,
@@ -37,12 +34,9 @@ from tpu_inspect_torch.ops.morphology import (
 )
 
 
-@functools.lru_cache(maxsize=8)
-def _table_tensor(device: str) -> torch.Tensor:
-    return torch.as_tensor(CONTOUR_TABLE_X2, dtype=torch.int32).to(device).contiguous()
-
-
-def _head(fg, roi, pre_open):
+def candidate_mask(fg, roi=None, pre_open=False) -> torch.Tensor:
+    """The filter's input: ``fg`` ANDed with ``roi`` (when given), then the
+    3x3-ellipse open (with ``pre_open``); [U, H, W] bool."""
     v = fg if roi is None else torch.where(roi > 0, fg, torch.zeros_like(fg))
     if pre_open:
         v = apply_stages(v, open_stages(3))
@@ -52,22 +46,19 @@ def _head(fg, roi, pre_open):
 def blob_filter_plain(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
     """The plain PyTorch version of :func:`blob_filter` (same contract); it
     launches no kernel."""
-    m = _head(fg, roi, pre_open)
-    u, h, w = m.shape
-    hw = h * w
+    m = candidate_mask(fg, roi, pre_open)
     ext = exterior_background_plain(m)
-    fill = ~ext
-    fill_lab = label_components_plain(fill).to(torch.int64)
-    fg_lab = label_components_plain(m).to(torch.int64)
+    fill_lab = label_components_plain(~ext)
     # the raster-first pixel of a fill region is fg and is also the
     # raster-first pixel of the region's top-level blob
-    top = m & (fg_lab == fill_lab)
-    a2 = contour_sums_x2(top, ext, fill_lab).abs()
-    keep = (a2 >= int(min_x2)) & (a2 <= max_x2.to(torch.int64)[:, None])
-    lab_flat = torch.where(fill, fill_lab, 0).reshape(u, hw)  # off-fill: masked below
-    out = keep.gather(1, lab_flat).reshape(u, h, w) & fill
-    area = out.sum(dim=(1, 2)).to(torch.int32)
-    return out.to(torch.uint8) * 255, area
+    top = m & (label_components_plain(m) == fill_lab)
+    return blob_select_plain(fill_lab, top, ext, max_x2, min_x2=min_x2)
+
+
+def blob_filter_fits(h: int, w: int) -> bool:
+    """Whether an h x w unit fits the kernel's int32 Green's sums (a sum is
+    at most (h+1)*(w+1) contributions of at most h+w+1 each)."""
+    return (h + 1) * (w + 1) * (h + w + 2) < 2**31
 
 
 def blob_filter(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
@@ -86,7 +77,7 @@ def blob_filter(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
     check_vector(max_x2, "blob_filter max_x2", u, fg.device)
     if fg.device.type == "cpu":
         return blob_filter_plain(fg, max_x2, min_x2=min_x2, roi=roi, pre_open=pre_open)
-    if (h + 1) * (w + 1) * (h + w + 2) >= 2**31:
+    if not blob_filter_fits(h, w):
         raise ValueError(f"blob_filter: unit {h}x{w} too large for int32 sums")
     nb = ((h + 1) // 2) * ((w + 1) // 2)
     out = torch.empty_like(fg)
@@ -97,7 +88,7 @@ def blob_filter(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
     prog = stage_program_tensor(stages, str(fg.device))
     err = build.lib().tik_blob_filter(
         fg.data_ptr(), None if roi is None else roi.data_ptr(), max_x2.data_ptr(),
-        _table_tensor(str(fg.device)).data_ptr(), prog.data_ptr(), out.data_ptr(),
+        contour_table(str(fg.device)).data_ptr(), prog.data_ptr(), out.data_ptr(),
         area.data_ptr(), planes.data_ptr(), blocks.data_ptr(), u, h, w,
         int(min_x2), int(roi is not None),
         torch.cuda.current_stream(fg.device).cuda_stream,

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build
+from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build, check_labels
 
 BIG = 2**30
 _K = 2**31  # > every label value; keys stay in int64
@@ -116,15 +116,18 @@ def block_rank(h: int, w: int, device) -> torch.Tensor:
 def largest_component(fg: torch.Tensor):
     """Largest 8-connected component per unit (max area, ties by OpenCV's
     block-raster order), in plain torch ops: it is part of kernel A's plain
-    version and launches no kernel.
+    version and launches no kernel. Returns what :func:`component_stats`
+    does."""
+    return component_stats_plain(label_components_plain(fg), fg)
 
-    Returns (mask [U,H,W] bool, stats [U, 8] int32) with the stats row
-    (area, sx, sy, has_fg, row_lo, row_hi, col_lo, col_hi): sx/sy are exact
-    coordinate sums; an empty unit gives (0, 0, 0, 0, H, 0, W, 0)."""
+
+def component_stats_plain(labels: torch.Tensor, fg: torch.Tensor):
+    """The plain PyTorch version of :func:`component_stats` (same
+    contract); it launches no kernel."""
     u, h, w = fg.shape
     hw = h * w
     dev = fg.device
-    lab = label_components_plain(fg).to(torch.int64).reshape(u, hw)
+    lab = labels.to(torch.int64).reshape(u, hw)
     fgf = fg.reshape(u, hw)
     idx = torch.where(fgf, lab, hw)  # background -> spill bucket hw
     area = torch.zeros((u, hw + 1), dtype=torch.int64, device=dev)
@@ -159,5 +162,43 @@ def largest_component(fg: torch.Tensor):
     stats = torch.stack(
         [best_area, sx, sy, has.to(torch.int64), row_lo, row_hi, col_lo, col_hi],
         dim=1,
-    ).to(torch.int32)
+    )
     return mask, stats
+
+
+def component_stats(labels: torch.Tensor, fg: torch.Tensor):
+    """Largest 8-connected component per unit from given labels; kernel F.
+
+    ``labels`` [U, H, W] int32 are :func:`label_components`' (the
+    raster-first pixel index of each component of ``fg``) and ``fg`` the
+    [U, H, W] bool (or uint8) plane they label. The winner has the largest
+    area, ties going to the smallest minimum :func:`block_rank` (OpenCV's
+    order). Returns (mask [U, H, W] bool, stats [U, 8] int64) with the stats
+    row (area, sx, sy, has_fg, row_lo, row_hi, col_lo, col_hi): sx/sy are
+    exact coordinate sums (about 5e10 on a whole 4096x3000 plane); an empty
+    unit gives (0, 0, 0, 0, H, 0, W, 0).
+
+    Launches ``csrc/cc_stats.cu`` for CUDA tensors and runs
+    :func:`component_stats_plain` for CPU tensors."""
+    fg = as_planes(fg, "component_stats fg")
+    check_labels(labels, fg, "component_stats labels")
+    if fg.device.type == "cpu":
+        return component_stats_plain(labels, fg != 0)
+    u, h, w = fg.shape
+    if u * h * w >= 2**31:
+        raise ValueError(f"component_stats: {u}x{h}x{w} too large for int32 indices")
+    dev = fg.device
+    mask = torch.empty((u, h, w), dtype=torch.uint8, device=dev)
+    stats = torch.empty((u, 8), dtype=torch.int64, device=dev)
+    slots = torch.empty((2 * u * h * w,), dtype=torch.int32, device=dev)
+    units = torch.empty((u, 8), dtype=torch.int64, device=dev)
+    err = torch.zeros((1,), dtype=torch.int32, device=dev)
+    code = build.lib().tik_component_stats(
+        labels.data_ptr(), fg.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+        slots.data_ptr(), units.data_ptr(), err.data_ptr(), u, h, w,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check("component_stats", code)
+    LAUNCHES["cc_stats"] += 1
+    build.check_bounded("component_stats", err)
+    return mask.view(torch.bool), stats

@@ -12,8 +12,8 @@ Port of :func:`tpu_inspect.ops.contour.analyze_blobs` (``contour.py:46-141``):
    contributions from ``CONTOUR_TABLE_X2`` (Green's theorem).
 
 :func:`contour_sums_x2` is that last step in plain torch ops; it launches
-nothing, so kernel C's plain version (``ops.blob.blob_filter_plain``) shares
-it.
+nothing, so kernel G's plain version (``ops.blob_select.blob_select_plain``,
+which kernel C's plain version calls) shares it.
 """
 
 from __future__ import annotations

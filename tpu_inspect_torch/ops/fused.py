@@ -28,19 +28,30 @@ from tpu_inspect_torch.ops.threshold import threshold_binary_inv
 STAT_FIELDS = ("area", "sx", "sy", "has_fg", "row_lo", "row_hi", "col_lo", "col_hi")
 
 
-def seg_tail_plain(x, stages=(), fill=False, out_largest=False, thr=None):
-    """The plain PyTorch version of :func:`seg_tail` (same contract); it
-    launches no kernel."""
+def tail_mask(x, stages=(), thr=None) -> torch.Tensor:
+    """The tail's head: ``x <= thr`` (or ``x > 0`` without ``thr``), then
+    the erode/dilate stage chain; [U, H, W] bool."""
     if thr is not None:
         v = threshold_binary_inv(x, thr)
     else:
         v = torch.where(x > 0, 255, 0).to(torch.uint8)
-    m = apply_stages(v, stages) > 0
+    return apply_stages(v, stages) > 0
+
+
+def seg_tail_fits(h: int, w: int) -> bool:
+    """Whether an h x w unit fits the kernel's int32 coordinate sums."""
+    return max(h, w) * h * w < 2**31
+
+
+def seg_tail_plain(x, stages=(), fill=False, out_largest=False, thr=None):
+    """The plain PyTorch version of :func:`seg_tail` (same contract); it
+    launches no kernel."""
+    m = tail_mask(x, stages, thr)
     if fill:
         m = m | ~exterior_background_plain(m)
     best, stats = largest_component(m)
     out = best if out_largest else m
-    return out.to(torch.uint8) * 255, stats
+    return out.to(torch.uint8) * 255, stats.to(torch.int32)
 
 
 def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None):
@@ -52,7 +63,7 @@ def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None):
         check_vector(thr, "seg_tail thr", u, x.device)
     if x.device.type == "cpu":
         return seg_tail_plain(x, stages, fill, out_largest, thr)
-    if max(h, w) * h * w >= 2**31:
+    if not seg_tail_fits(h, w):
         raise ValueError(f"seg_tail: unit {h}x{w} too large for int32 sums")
     nb = ((h + 1) // 2) * ((w + 1) // 2)
     out = torch.empty_like(x)
