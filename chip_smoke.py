@@ -8,8 +8,8 @@ Run from the repository root with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build the seven CUDA kernels from ``tpu_inspect_torch/csrc`` (one nvcc
-   per source, all started together, sm_90a);
+2. build the ten CUDA kernels (A-J) from ``tpu_inspect_torch/csrc`` (one
+   nvcc per source, all started together, sm_90a);
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
    bit-exact (tolerance 0): the standard workload's own stage inputs
    (48 units of 315x316: the seg and ROI tails, the median residual, the
@@ -19,8 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    route's inputs (the standard image as one 1x3000x4096 unit: kernels B,
    D and E on whole planes, kernel F on the labels of the seg mask and of
    the ROI, kernel G on the defect tail's fill labels, top-level blobs and
-   exterior); seeded random planes of odd sizes with an empty and a full
-   unit, and a long 1-px serpentine;
+   exterior); kernel H's full median at k = 47, 49 and 101 on the 48 units
+   and at k = 47 on the whole plane; kernel I's close/open, open and 13x13
+   erode forms on the 48 units and on the whole plane; kernel J on the 48
+   units' eroded seg masks with an empty and a full unit, and on the one
+   unit of the erosion preview; seeded random planes of odd sizes with an
+   empty and a full unit, and a long 1-px serpentine;
 4. every path on the card, each driven with the launch counts set to 0 just
    before it and read just after, and held field by field against the same
    engine on ``device="cpu"``: ``engine.inspect_image`` for the four
@@ -33,13 +37,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and ``inspect_units`` (config1defect) on the reference and the shifted
    capture for otsu/threshold; the other combos on the card at full size,
    held against the CPU at full size for adaptive/threshold and on a
-   centre crop for the two Canny combos;
+   centre crop for the two Canny combos; ``inspect_image`` with
+   ``median_k = 47`` (kernel H) on the standard workload; an
+   ``InspectionSession(device="cuda")`` (the reference, then the (7, -4)
+   capture: segmentation, inspection, a single-unit defect test and its
+   log lines, the erosion preview on kernels I and J), and a ``UIServer`` on
+   127.0.0.1 driven over HTTP with ``median_k = 47`` (state, indexing,
+   segmentation, inspection, a defect test, a selection and the canvas PNG
+   with the selected unit's outline), each held against phase 4's CPU
+   results for the same image and parameters;
 5. times on the card: each kernel vs its plain version (CUDA events, median
    of repeated runs at the paths' shapes, the whole planes included) beside
    its bound (the bytes the call must move at 3.35 TB/s), each combo's
    ``inspect_image`` steady-state wall ms/image (host image in, host
-   results out), the whole-image segmentation and seg+defect wall ms, and
-   a ``torch.profiler`` breakdown of each.
+   results out), the whole-image segmentation and seg+defect wall ms, the
+   session's and the UI server's calls, and a ``torch.profiler`` breakdown
+   of each combo.
 
 The second-to-last lines are the card line and one JSON object with the
 per-kernel results; the last line is the JSON status object. Without CUDA,
@@ -79,6 +92,11 @@ WHOLE_HOME = "whole inspect_units otsu/threshold reference"
 # full plane, 3.9x its area, would take the script past half its time limit
 WHOLE_CROP = (1536, 2048)
 CROPPED_DEFECT_METHODS = {"canny"}
+# kernel H's path: the threshold method with a window of k*k >= 2048
+BIG_K = 47
+BIG_K_HOME = f"otsu/threshold median_k={BIG_K} reference"
+SESSION_HOME = "session erosion_outline"
+REPS_HOST = 5
 
 
 def fail(msg: str) -> None:
@@ -167,6 +185,74 @@ def roi_rows_bytes(x, k: int, row_lo, row_hi) -> int:
     return int(torch.where(hi > lo, rows, 0).sum()) * w * x.element_size()
 
 
+def http_json(srv, op: str, body: dict | None = None) -> dict:
+    """GET /api/state (``op == "state"``) or POST /api/<op> on the UI
+    server; fails on any status but 200."""
+    import urllib.request
+
+    if op == "state":
+        req = urllib.request.Request(f"{srv.url}api/state")
+    else:
+        req = urllib.request.Request(f"{srv.url}api/{op}", data=json.dumps(body or {}).encode(),
+                                     headers={"Content-Type": "application/json"},
+                                     method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if r.status != 200:
+            fail(f"ui: {op} answered {r.status}")
+        return json.loads(r.read())
+
+
+def http_get(srv, path: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"{srv.url}api/{path}", timeout=300) as r:
+        if r.status != 200 or r.headers.get("Content-Type") != "image/png":
+            fail(f"ui: {path} answered {r.status} {r.headers.get('Content-Type')}")
+        return r.read()
+
+
+def png_pixels(data: bytes):
+    """Pixels of a PNG from the port's encoder (8-bit gray or RGB, filter 0
+    on every row), read with zlib: the card's host has no cv2."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("not a PNG")
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat += body
+    ch = {0: 1, 2: 3}[color]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)
+    if depth != 8 or raw[:, 0].any():
+        fail("PNG with a bit depth or a row filter this reader does not take")
+    return raw[:, 1:].reshape((h, w, ch) if ch == 3 else (h, w))
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host wall ms of ``fn`` (ending in a device sync) over ``reps``
+    calls after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def profile_combo(label: str, run, card: str) -> None:
     """Device time per kernel (and copy) over PROFILE_REPS calls of ``run``
     under torch.profiler, per call, beside the host wall of the same calls;
@@ -216,7 +302,7 @@ def main() -> int:
 
     import numpy as np
 
-    from tpu_inspect_torch import engine
+    from tpu_inspect_torch import engine, geometry, render
     from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
     from tpu_inspect_torch.imageio import gather_crops
     from tpu_inspect_torch.kernels import LAUNCHES, build, reset_launches
@@ -228,16 +314,32 @@ def main() -> int:
         component_stats_plain,
         label_components,
         label_components_plain,
+        largest_component,
+        largest_component_sums,
     )
     from tpu_inspect_torch.ops.flood import propagate, propagate_plain
     from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_plain, tail_mask
     from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
     from tpu_inspect_torch.ops.median import (
+        median_blur_u8,
+        median_blur_u8_plain,
         median_residual_mask,
         median_residual_mask_plain,
     )
-    from tpu_inspect_torch.ops.morphology import close_open_stages, rect_erode_stages
-    from tpu_inspect_torch.ops.threshold import adaptive_threshold_inv, otsu_threshold
+    from tpu_inspect_torch.ops.morphology import (
+        apply_stages,
+        close_open_stages,
+        morph_chain,
+        open_stages,
+        rect_erode_stages,
+    )
+    from tpu_inspect_torch.ops.threshold import (
+        adaptive_threshold_inv,
+        otsu_threshold,
+        threshold_binary_inv,
+    )
+    from tpu_inspect_torch.session import InspectionSession
+    from tpu_inspect_torch.ui import UIServer
     from tpu_inspect_torch.synthetic import (
         make_mold_image,
         serpentine_plane,
@@ -334,6 +436,19 @@ def main() -> int:
     say(f"phase 3: whole-image planes 1x3000x4096: seg mask {int(seg_fill_w.sum())} px, "
         f"ROI {int(roi_st_w[0, 0])} px, candidates {int(m_w.sum())} px (Canny "
         f"{int(m_cw.sum())} px)")
+    # kernel I's planes: the seg tail's thresholded head, the ROI-masked
+    # residual before its open, the seg masks before the ROI erode
+    open3 = open_stages(3)
+    seg_head = threshold_binary_inv(x, thr)
+    cand_roi_u8 = torch.where(roi > 0, cand, torch.zeros_like(cand))
+    seg_head_w = threshold_binary_inv(x_w, otsu_threshold(x_w))
+    cand_w = median_residual_mask(whole, k, t_res, row_lo_w, row_hi_w)
+    cand_roi_w = torch.where(roi_w > 0, cand_w, torch.zeros_like(cand_w))
+    # kernel J's planes: the eroded seg masks (an empty and a full unit in
+    # place of the first two) and the erosion preview's unit
+    j_plane = tail_mask(seg_masks, erode)
+    j_plane[0], j_plane[1] = False, True
+    j_one = tail_mask(seg_masks[u0 : u0 + 1], erode).contiguous()
 
     # per kernel: (label, call, inputs read) at the paths' shapes; "path"
     # cases are what one inspect_image (or one diagnostic pass) runs, the
@@ -358,6 +473,12 @@ def main() -> int:
             ("diag fill plane", lambda f: f(fill1), (fill1,)),
             ("diag fg plane", lambda f: f(fg1), (fg1,)),
         ],
+        "median_blur": [
+            (f"k {BIG_K}, 48 units", lambda f: f(crops, BIG_K), (crops,)),
+        ],
+        "label_stats": [
+            ("erosion preview unit", lambda f: f(j_one), (j_one,)),
+        ],
     }
     other_cases = {
         "seg_tail": [
@@ -380,6 +501,18 @@ def main() -> int:
         "blob_select": [
             ("whole defect tail, Canny", lambda f: f(*regions_cw, max_x2_w, min_x2=min_x2),
              (*regions_cw, max_x2_w)),
+        ],
+        "median_blur": [
+            ("k 49, 48 units", lambda f: f(crops, 49), (crops,)),
+            ("k 101, 48 units", lambda f: f(crops, 101), (crops,)),
+        ],
+        "morph": [
+            ("close/open k3, 48 units", lambda f: f(seg_head, co), (seg_head,)),
+            ("open 3x3, 48 units", lambda f: f(cand_roi_u8, open3), (cand_roi_u8,)),
+            ("erode 13x13, 48 units", lambda f: f(seg_masks, erode), (seg_masks,)),
+        ],
+        "label_stats": [
+            ("eroded seg masks 48u, empty + full", lambda f: f(j_plane), (j_plane,)),
         ],
     }
     # the whole-image route (one inspect_units call on 1x3000x4096): B, D
@@ -409,6 +542,14 @@ def main() -> int:
              lambda f: f(fill_w, top_w, ext_w, max_x2_w, min_x2=min_x2),
              (fill_w, top_w, ext_w, max_x2_w)),
         ],
+        "median_blur": [
+            (f"k {BIG_K}, whole plane", lambda f: f(whole, BIG_K), (whole,)),
+        ],
+        "morph": [
+            ("whole close/open k3", lambda f: f(seg_head_w, co), (seg_head_w,)),
+            ("whole erode 13x13", lambda f: f(seg_mask_w, erode), (seg_mask_w,)),
+            ("whole open 3x3", lambda f: f(cand_roi_w, open3), (cand_roi_w,)),
+        ],
     }
     kernel_fns = {
         "seg_tail": (seg_tail, seg_tail_plain),
@@ -418,6 +559,9 @@ def main() -> int:
         "label": (label_components, label_components_plain),
         "cc_stats": (component_stats, component_stats_plain),
         "blob_select": (blob_select, blob_select_plain),
+        "median_blur": (median_blur_u8, median_blur_u8_plain),
+        "morph": (morph_chain, apply_stages),
+        "label_stats": (largest_component_sums, largest_component),
     }
 
     def compare(name, label, got, ref):
@@ -481,6 +625,14 @@ def main() -> int:
             ("cc_stats", "random", lambda f: f(lab_r, full_b)),
             ("blob_select", "random", lambda f: f(*regions_r, mx_r, min_x2=6)),
             ("blob_select", "random, min 0", lambda f: f(*regions_r, mx_r, min_x2=0)),
+            ("median_blur", "k 3", lambda f: f(gray, 3)),
+            ("median_blur", "k 101, above the unit", lambda f: f(gray, 101)),
+            ("median_blur", "k 301, through L1", lambda f: f(gray, 301)),
+            ("morph", "close/open 7", lambda f: f(blobs_t, close_open_stages(7))),
+            ("morph", "erode 25", lambda f: f(full, rect_erode_stages(25))),
+            ("morph", "open 3", lambda f: f(full, open3)),
+            ("label_stats", "random", lambda f: f(full_b)),
+            ("label_stats", "inverted", lambda f: f((~full_b).contiguous())),
         ]
         for name, label, call in cases:
             fast, plain = kernel_fns[name]
@@ -488,6 +640,12 @@ def main() -> int:
             torch.cuda.synchronize()
             errs[name] = max(errs[name], compare(name, label, got, ref))
         say(f"phase 3: random {u}x{hh}x{ww} planes bit-exact for all kernels")
+    # kernel J's global-scratch form: units whose 9 bytes a 2x2 block exceed
+    # a block's shared memory
+    big_j = torch.from_numpy(np.random.RandomState(1).rand(2, 401, 421) > 0.55).to(dev)
+    errs["label_stats"] = max(errs["label_stats"], compare(
+        "label_stats", "global scratch", largest_component_sums(big_j), largest_component(big_j)))
+    say("phase 3: label_stats [global scratch] 2x401x421 bit-exact vs plain")
     snake = torch.from_numpy(serpentine_plane(125, 316)[None]).to(dev)
     tip = torch.zeros_like(snake).flatten()
     tip[snake.flatten().nonzero().max()] = 1  # seed only the path's far end
@@ -519,6 +677,7 @@ def main() -> int:
         "canny": ("seg_tail", "propagate", "blob_filter"),
     }
     launches_by_path = {}
+    cpu_runs = {}  # path -> the CPU run's results, held against the session's
     for seg_m, def_m in COMBOS:
         sp = SegmentationParams(method=seg_m).validated()
         dp = DefectParams(method=def_m).validated()
@@ -543,6 +702,7 @@ def main() -> int:
             t0 = time.perf_counter()
             s_cpu, i_cpu = engine.inspect_image(img, cpu_grid, sp, dp, device="cpu", **kw)
             cpu_s = time.perf_counter() - t0
+            cpu_runs[path] = (s_cpu, i_cpu)
             if launches["seg_tail"] < 2 or any(launches[n] < 1 for n in expect[def_m]):
                 fail(f"{path}: the path missed a kernel, launches {launches}")
             for field in ("masks", "centroids", "centroid_valid", "shifts"):
@@ -700,6 +860,145 @@ def main() -> int:
             f"{areas}, launches {launches}); its centre crop "
             f"{WHOLE_CROP[0]}x{WHOLE_CROP[1]} bit-exact vs device=cpu ({cpu_s:.1f} s on the CPU)")
 
+    # kernel H's path: the threshold method with median_k = 47 on the
+    # standard workload (the full median, never kernel B)
+    big = DefectParams(median_k=BIG_K).validated()
+    excl = work["exclusions"]
+    reset_launches()
+    got = engine.inspect_image(work["image"], grid, seg, big, exclusions=excl, device="cuda")
+    launches = dict(LAUNCHES)
+    launches_by_path[BIG_K_HOME] = launches
+    t0 = time.perf_counter()
+    big_cpu = engine.inspect_image(work["image"], grid, seg, big, exclusions=excl, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if (launches["median_blur"] < 1 or launches["median_residual"] or launches["seg_tail"] < 2
+            or launches["blob_filter"] < 1):
+        fail(f"{BIG_K_HOME}: not the full-median path, launches {launches}")
+    held(BIG_K_HOME, got, big_cpu)
+    say(f"phase 4: {BIG_K_HOME} 48 units on the card bit-exact vs device=cpu ({cpu_s:.1f} s "
+        f"on the CPU): NG {int(got[1].verdicts.sum())}/48, defect px "
+        f"{int(got[1].areas.sum())}, launches {launches}")
+
+    # the interactive session on the card: the reference, then the (7, -4)
+    # capture, each held against phase 4's CPU run of the same image
+    cpu_ref, cpu_shift = (cpu_runs[f"otsu/threshold {c}"] for c in ("reference", "shifted"))
+    sess = InspectionSession(device="cuda")
+    sess.add_image("reference", work["image"])
+    sess.add_image("shifted", shifted_img)
+    sess.apply_indexing(grid)
+    for e in excl:
+        sess.add_exclusion(e)
+    if sess.exclusions != list(excl):
+        fail(f"session: the exclusions were clamped to {sess.exclusions}")
+    reset_launches()
+    held("session reference run_segmentation", sess.run_segmentation(), cpu_ref[0])
+    sess.switch_to("shifted")  # re-runs segmentation on the reference's anchors
+    seg_sh = sess.results().seg
+    held("session shifted segmentation", seg_sh, cpu_shift[0])
+    insp = sess.run_inspection()
+    launches_by_path["session shifted"] = dict(LAUNCHES)
+    for field in ("defect_masks", "valid", "verdicts"):
+        if not np.array_equal(getattr(insp, field), getattr(cpu_shift[1], field)):
+            fail(f"session shifted run_inspection: {field} differs from the CPU run")
+    if not np.array_equal(insp.areas.astype(np.int64), cpu_shift[1].areas):
+        fail("session shifted run_inspection: areas differ from the CPU run")
+    u = int(np.flatnonzero(cpu_shift[1].verdicts)[0])
+    crops_sh = gather_crops(torch.from_numpy(shifted_img), torch.from_numpy(work["origins"]),
+                            (h, w)).numpy()
+    d = engine.defect_intermediates(crops_sh[u], cpu_shift[0].masks[u], dp0, device="cpu")
+    area_u, found_u = int(cpu_shift[1].areas[u]), bool(cpu_shift[1].valid[u])
+    want = [f"Seg mask area (roi)={d['seg_area0']}, erode_px={d['erode_px']}"]
+    if d["roi_empty"]:
+        want.append("Segmentation mask empty after erode — skipping detection for this unit")
+    else:
+        if "resid_area" in d:
+            want.append(f"Residual mask area={d['resid_area']}")
+        want.append(f"Defect area filter: min={d['min_area']}, max={d['max_area']}, "
+                    f"seg_area={d['roi_area']}")
+        want += [f"Skipping large contour area={a} (>max={d['max_area']})"
+                 for a in d["skipped_large"]]
+    if not found_u:
+        want.append("No defects found (or detection failed).")
+    want.append(f"Unit {u}: defect area={area_u} px -> "
+                f"{'NG' if area_u >= dp0.min_area else 'OK'}")
+    n0 = len(sess.log.lines)
+    res = sess.test_defect_unit(u)
+    lines = list(sess.log.lines)[n0:]
+    if lines != want:
+        fail(f"session test_defect_unit({u}) logged {lines}, the CPU values give {want}")
+    if (res["area"], res["found"]) != (area_u, found_u) or not np.array_equal(
+            res["mask"], cpu_shift[1].defect_masks[u]):
+        fail(f"session test_defect_unit({u}) differs from the CPU run")
+    boxes = geometry.grid_boxes(grid)
+    reset_launches()
+    kind, outline = render.erosion_outline(seg_sh.masks[u], boxes[u], dp0.erode_px,
+                                           device="cuda")
+    launches = dict(LAUNCHES)
+    launches_by_path[SESSION_HOME] = launches
+    ref_outline = render.erosion_outline_mask(cpu_shift[0].masks[u], dp0.erode_px, device="cpu")
+    if kind != "mask" or not np.array_equal(outline, ref_outline):
+        fail(f"session erosion_outline of unit {u} differs from the CPU run")
+    if launches["label_stats"] != 1 or launches["morph"] != 2:
+        fail(f"{SESSION_HOME}: not kernels I and J, launches {launches}")
+    say(f"phase 4: session (device=cuda) reference + (7, -4) capture equal to phase 4's CPU "
+        f"runs: shift median {np.median(seg_sh.shifts, axis=0).tolist()}, NG "
+        f"{int(insp.verdicts.sum())}/48; unit {u}'s defect test logged {len(lines)} lines "
+        f"equal to the CPU values; its erosion outline ({int(outline.sum())} px) equal, "
+        f"launches {launches}")
+
+    # the UI server over HTTP, its session on the card with preloaded arrays,
+    # median_k = 47: held against the k = 47 CPU run above
+    ui_sess = InspectionSession(device="cuda")
+    ui_sess.add_image("reference", work["image"])
+    srv = UIServer(session=ui_sess)
+    srv.start()
+    reset_launches()
+    st0 = http_json(srv, "state")
+    if st0["current"] != "reference" or st0["image_size"] != [4096, 3000]:
+        fail(f"ui: unexpected state {st0}")
+    http_json(srv, "indexing", dataclasses.asdict(grid))
+    for e in excl:
+        http_json(srv, "exclusion_add", {"excl": e})
+    http_json(srv, "defect_params", dataclasses.asdict(big))
+    if http_json(srv, "run_segmentation", {})["units"] != 48:
+        fail("ui: run_segmentation did not cover 48 units")
+    ng = http_json(srv, "inspection", {"enabled": True})["ng"]
+    st = http_json(srv, "state")
+    big_insp = big_cpu[1]
+    if (st["verdicts"], st["areas"], st["found"], ng) != (
+            big_insp.verdicts.tolist(), big_insp.areas.tolist(), big_insp.valid.tolist(),
+            int(big_insp.verdicts.sum())):
+        fail("ui: the inspection state differs from the CPU run")
+    idx = int(np.flatnonzero(big_insp.verdicts)[0]) if big_insp.verdicts.any() else 0
+    r = http_json(srv, "test_defect", {"idx": idx})
+    want_r = (int(big_insp.areas[idx]), "NG" if big_insp.verdicts[idx] else "OK",
+              bool(big_insp.valid[idx]), list(boxes[idx]))
+    if (r["area"], r["verdict"], r["found"], r["zoom_to"]) != want_r:
+        fail(f"ui: test_defect {r} differs from the CPU run {want_r}")
+    if http_json(srv, "select", {"idx": idx})["selected"] != idx:
+        fail("ui: select")
+    canvas_q = f"canvas.png?selected={idx}&outline=1"
+    got_px = png_pixels(http_get(srv, canvas_q))
+    ui_launches = dict(LAUNCHES)
+    launches_by_path["ui server"] = ui_launches
+    # the same render from the CPU run's results (no second CPU pass)
+    exp = InspectionSession(device="cpu")
+    exp.add_image("reference", work["image"])
+    exp.grid, exp.exclusions, exp.defect_params = grid, list(excl), big
+    exp.results().seg, exp.results().insp = big_cpu
+    exp.overlay_mode, exp.inspection_enabled = ui_sess.overlay_mode, False
+    want_px = png_pixels(UIServer(session=exp).render_png(
+        {"selected": [str(idx)], "outline": ["1"]}))
+    if got_px.shape != want_px.shape or not np.array_equal(got_px, want_px):
+        fail("ui: the canvas PNG's pixels differ from the CPU run's render")
+    if any(ui_launches[n] < 1 for n in ("median_blur", "morph", "label_stats", "seg_tail",
+                                        "blob_filter")):
+        fail(f"ui: kernels H, I and J did not all run, launches {ui_launches}")
+    say(f"phase 4: UI server 127.0.0.1:{srv.port} (session on the card, median_k={BIG_K}) "
+        f"equal to the CPU run: state verdicts/areas/found, test_defect unit {idx} "
+        f"({r['verdict']}, {r['area']} px), canvas {got_px.shape} with the outline, "
+        f"launches {ui_launches}")
+
     # ---- phase 5: times ----------------------------------------------------
     def timed(name, lst):
         fast, plain = kernel_fns[name]
@@ -770,6 +1069,38 @@ def main() -> int:
     profile_combo("whole-image seg+defect (inspect_units, otsu/threshold)",
                   whole_e2e["single_unit_4096x3000_seg_defect_ms"], card)
 
+    # kernel I's yardstick: its 13x13 rect erode is one library call, a max
+    # pool of the negated plane (float16 holds 0..255 exactly; the -inf
+    # padding is the erode's clip-to-plane border), timed alone
+    lib_ms = {}
+    for label, plane in (("erode 13x13, 48 units", seg_masks), ("whole erode 13x13", seg_mask_w)):
+        neg = -(plane.to(torch.float16).unsqueeze(1))
+        pool = torch.nn.functional.max_pool2d
+        r = 2 * dparams.erode_px + 1
+        if not torch.equal((-pool(neg, r, 1, r // 2)).squeeze(1).to(torch.uint8),
+                           morph_chain(plane, erode)):
+            fail(f"morph [{label}]: the library yardstick computes another function")
+        lib_ms[label] = cuda_ms(lambda n=neg: pool(n, r, 1, r // 2), REPS_KERNEL)
+        say(f"phase 5: library max_pool2d(-x, {r}, 1, {r // 2}) float16 [{label}] "
+            f"{lib_ms[label]:.4f} ms on {card}")
+    # the interactive calls on the card (wall, median of REPS_HOST)
+    boxes_q = f"canvas.png?selected={idx}&outline=1"
+    interactive = {
+        "session run_segmentation (48 units)": lambda: sess.run_segmentation(),
+        "session run_inspection (48 units)": lambda: sess.run_inspection(),
+        "session test_defect_unit (one unit, with diagnostics)":
+            lambda: sess.test_defect_unit(u),
+        "render erosion_outline_mask (one unit)":
+            lambda: render.erosion_outline_mask(seg_sh.masks[u], dp0.erode_px, device="cuda"),
+        f"UI POST test_defect (median_k={BIG_K})": lambda: http_json(srv, "test_defect",
+                                                                    {"idx": idx}),
+        "UI GET canvas.png with the outline": lambda: http_get(srv, boxes_q),
+    }
+    for label, run in interactive.items():
+        e2e[label] = wall_ms(run, REPS_HOST)
+        say(f"phase 5: {label} {e2e[label]:.4f} ms (median of {REPS_HOST}, wall) on {card}")
+    srv.stop()
+
     sources = {
         "seg_tail": ("tpu_inspect_torch/csrc/seg_tail.cu", "tpu_inspect/ops/fused_pallas.py:145"),
         "median_residual": ("tpu_inspect_torch/csrc/median_residual.cu",
@@ -781,6 +1112,11 @@ def main() -> int:
         "cc_stats": ("tpu_inspect_torch/csrc/cc_stats.cu", "tpu_inspect/ops/cc_pallas.py:602"),
         "blob_select": ("tpu_inspect_torch/csrc/blob_select.cu",
                         "tpu_inspect/ops/cc_pallas.py:689"),
+        "median_blur": ("tpu_inspect_torch/csrc/median_blur.cu",
+                        "tpu_inspect/ops/median_pallas.py:104"),
+        "morph": ("tpu_inspect_torch/csrc/morph.cu", "tpu_inspect/ops/morph_pallas.py:138"),
+        "label_stats": ("tpu_inspect_torch/csrc/label_stats.cu",
+                        "tpu_inspect/ops/cc_pallas.py:421"),
     }
     # further TPU kernels whose function a kernel serves (whole-image
     # counterparts of tiled TPU kernels, and same-function resident ones)
@@ -796,8 +1132,12 @@ def main() -> int:
         "seg_tail": "otsu/threshold reference", "median_residual": "otsu/threshold reference",
         "blob_filter": "otsu/threshold reference", "propagate": "otsu/canny reference",
         "label": "defect_intermediates/canny", "cc_stats": WHOLE_HOME,
-        "blob_select": WHOLE_HOME,
+        "blob_select": WHOLE_HOME, "median_blur": BIG_K_HOME, "morph": WHOLE_HOME,
+        "label_stats": SESSION_HOME,
     }
+    # kernel I's top-level numbers are its 13x13 erode form on the whole
+    # plane, the form with a library yardstick (one of its launches there)
+    home_form = {"morph": "whole erode 13x13"}
 
     def summed(rows, path):
         bound = sum(r["bound_ms"] for r in rows)
@@ -809,6 +1149,8 @@ def main() -> int:
     for name in kernel_fns:
         path_rows, other_rows, whole_rows = times[name]
         home_rows = whole_rows if home_path[name] == WHOLE_HOME else path_rows
+        if name in home_form:
+            home_rows = [r for r in home_rows if r["form"] == home_form[name]]
         entry = {
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "also_replaces": also_replaces.get(name, []),
@@ -816,9 +1158,12 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in launches_by_path.items()},
             "max_abs_err": errs[name],
             **summed(home_rows, home_path[name]),
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": "bytes", "library_ms": lib_ms.get(home_form.get(name)),
             "forms": path_rows + other_rows + whole_rows,
         }
+        if name in home_form:
+            entry["form"] = home_form[name]
+            entry["library_ms_48_units"] = lib_ms["erode 13x13, 48 units"]
         if whole_rows and home_rows is not whole_rows:
             entry["whole"] = {**summed(whole_rows, WHOLE_HOME),
                               "launches": launches_by_path[WHOLE_HOME][name]}

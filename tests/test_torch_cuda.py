@@ -24,11 +24,24 @@ from tpu_inspect_torch.ops.cc import (
     component_stats_plain,
     label_components,
     label_components_plain,
+    largest_component,
+    largest_component_sums,
 )
 from tpu_inspect_torch.ops.flood import propagate, propagate_plain
 from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_plain
-from tpu_inspect_torch.ops.median import median_residual_mask, median_residual_mask_plain
-from tpu_inspect_torch.ops.morphology import close_open_stages, rect_erode_stages
+from tpu_inspect_torch.ops.median import (
+    median_blur_u8,
+    median_blur_u8_plain,
+    median_residual_mask,
+    median_residual_mask_plain,
+)
+from tpu_inspect_torch.ops.morphology import (
+    apply_stages,
+    close_open_stages,
+    morph_chain,
+    open_stages,
+    rect_erode_stages,
+)
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
 from tpu_inspect_torch.synthetic import make_mold_image, serpentine_plane, standard_workload
@@ -244,3 +257,57 @@ def test_whole_route_cuda_matches_cpu(cuda, method, monkeypatch):
         a, b = getattr(g_insp, f), getattr(c_insp, f)
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+@pytest.mark.parametrize("k", [3, 47, 49, 101, 301])
+def test_median_blur_matches_plain(cuda, k):
+    """Kernel H: shared-memory tiles up to k = 201, reads through L1 above
+    (k = 301 on these planes), and windows larger than the unit."""
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.randint(0, 256, (3, 37, 53), dtype=np.uint8)).to(cuda)
+    x[1] = 7  # a flat unit
+    reset_launches()
+    got = median_blur_u8(x, k)
+    assert LAUNCHES["median_blur"] == 1
+    _assert_equal(got, median_blur_u8_plain(x, k))
+    assert median_blur_u8(x, 1) is x
+
+
+@pytest.mark.parametrize("stages_name", ["close_open3", "close_open31", "open3", "erode6",
+                                         "erode200"])
+def test_morph_chain_matches_plain(cuda, stages_name):
+    rng = np.random.RandomState(14)
+    x = _planes(rng, (3, 70, 45), 0.5, cuda)
+    x[0] = 0
+    x[1, :, -1] = 255  # fg on the right and bottom edges
+    x[1, -1, :] = 255
+    if stages_name.startswith("close_open"):
+        stages = close_open_stages(int(stages_name[len("close_open"):]))
+    elif stages_name == "open3":
+        stages = open_stages(3)
+    else:
+        stages = rect_erode_stages(int(stages_name[len("erode"):]))
+    reset_launches()
+    got = morph_chain(x, stages)
+    assert LAUNCHES["morph"] == len(stages)  # one launch per stage
+    _assert_equal(got, apply_stages(x, stages))
+
+
+@pytest.mark.parametrize("shape", [(4, 37, 53), (1, 315, 316), (3, 401, 421)])
+def test_largest_component_sums_matches_plain(cuda, shape):
+    """Kernel J: block grids in shared memory (up to 315x316) and in the
+    global scratch (401x421: 9 bytes a block exceed a block's 227 KB)."""
+    rng = np.random.RandomState(15)
+    fg = _planes(rng, shape, 0.55, cuda) > 0
+    if shape[0] > 1:
+        fg[0] = False  # empty unit
+        fg[1] = True  # full unit
+        fg[2] = False
+        fg[2, 2, 28] = fg[2, 3, 0] = True  # an equal-area tie in block order
+    reset_launches()
+    got = largest_component_sums(fg)
+    assert LAUNCHES["label_stats"] == 1
+    _assert_equal(got, largest_component(fg))
+    _assert_equal(got, component_stats(label_components(fg), fg))
+    if shape[0] > 1:
+        assert got[0][2, 3, 0] and not got[0][2, 2, 28]

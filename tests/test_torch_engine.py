@@ -109,15 +109,23 @@ def test_unit_level_entry_points_match_jax_engine(captures, seg_m, def_m):
     assert s.centroid_dict() == js.centroid_dict()
 
 
-def test_unported_methods_raise():
-    img = np.zeros((60, 60), np.uint8)
+def test_unported_methods_raise(captures):
+    """The median windows that once raised NotImplementedError here
+    (k*k >= 2048) now answer as the JAX engine does, through both entry
+    points; no method of the port raises for being unported. (The
+    diagnostic pass at k = 47 is held against the JAX package's in
+    tests/test_torch_median_blur.py, where its compile is paid once.)"""
+    ref_img = captures[0]
+    seg, dp = tcfg.SegmentationParams(), tcfg.DefectParams(min_area=3, median_k=47)
+    s, i = teng.inspect_image(ref_img, GRID, seg, dp, exclusions=EXCLUSIONS, device="cpu")
+    js, ji = jeng.inspect_image(ref_img, _j(GRID), _j(seg), _j(dp), exclusions=EXCLUSIONS)
+    _assert_equal(s, js, SEG_FIELDS, "median_k=47")
+    _assert_equal(i, ji, INSP_FIELDS, "median_k=47")
+    x, y, w, h = 4, 6, 48, 44  # unit 0
+    d = teng.defect_intermediates(ref_img[y:y + h, x:x + w], s.masks[0], dp, device="cpu")
+    assert not d["roi_empty"] and "resid_area" in d
+    img =np.zeros((60, 60), np.uint8)
     grid = tcfg.GridParams(base_unit=(0, 0, 20, 20))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.inspect_image(img, grid, tcfg.SegmentationParams(),
-                           tcfg.DefectParams(median_k=47), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.defect_intermediates(img[:20, :20], img[:20, :20],
-                                  tcfg.DefectParams(median_k=47), device="cpu")
     # Canny reads no median window
     teng.inspect_image(img, grid, tcfg.SegmentationParams(),
                        tcfg.DefectParams(method="canny", median_k=47), device="cpu")

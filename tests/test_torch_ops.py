@@ -223,9 +223,13 @@ def test_engine_import_loads_no_jax():
     code = (
         "import sys, tpu_inspect_torch.engine, tpu_inspect_torch.synthetic, "
         "tpu_inspect_torch.ops.canny, tpu_inspect_torch.ops.contour, "
-        "tpu_inspect_torch.ops.flood; "
+        "tpu_inspect_torch.ops.flood, tpu_inspect_torch.session, "
+        "tpu_inspect_torch.render, tpu_inspect_torch.ui.server, "
+        "tpu_inspect_torch.persistence, tpu_inspect_torch.imageio, "
+        "tpu_inspect_torch.viewport, tpu_inspect_torch.utils; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'tpu_inspect' or m.startswith('tpu_inspect.')]; "
+        "or m == 'tpu_inspect' or m.startswith('tpu_inspect.') "
+        "or m == 'cv2' or m.startswith('cv2.')]; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -302,3 +306,152 @@ def test_wrappers_reject_bad_inputs():
         label_components(x.to(torch.int32))
     with pytest.raises(ValueError):
         label_components((x > 0)[:, :, ::2])  # not contiguous
+
+
+def test_host_copies_match_reference(tmp_path):
+    """persistence, logging, viewport, geometry and the UI asset equal their
+    originals in the JAX package."""
+    import json
+
+    from tpu_inspect import geometry as jgeo
+    from tpu_inspect import persistence as jper
+    from tpu_inspect import viewport as jvp
+    from tpu_inspect.utils import logging as jlog
+
+    from tpu_inspect_torch import geometry as tgeo
+    from tpu_inspect_torch import persistence as tper
+    from tpu_inspect_torch import viewport as tvp
+    from tpu_inspect_torch.utils import logging as tlog
+
+    assert (ROOT / "tpu_inspect_torch/ui/app.html").read_bytes() == (
+        ROOT / "tpu_inspect/ui/app.html").read_bytes()
+    # logging: the same lines, the same cap
+    logs = (tlog.InspectionLog(max_lines=5), jlog.InspectionLog(max_lines=5))
+    for lg in logs:
+        lg.log("start")
+        lg.unit_verdict(3, 25, 20)
+        lg.unit_verdict(4, 5, 20)
+        lg.unit_no_defects(7)
+        lg.batch_summary(2, 48)
+        lg.inspection_summary(8, 48)
+        with tlog.stage_timer("stage", lg):
+            pass
+    assert list(logs[0].lines)[:-1] == list(logs[1].lines)[:-1]
+    assert logs[0].tail(3)[:2] == logs[1].tail(3)[:2]
+    assert logs[0].lines[-1].startswith("stage: ") and logs[0].lines[-1].endswith(" ms")
+    # viewport
+    vps = (tvp.Viewport(4096, 3000, 1200, 800), jvp.Viewport(4096, 3000, 1200, 800))
+    for vp in vps:
+        vp.zoom_in()
+        vp.center_on_cell((1500, 900, 316, 315))
+        vp.zoom_out(1.5)
+    assert vars(vps[0]) == vars(vps[1])
+    for vp in vps:
+        assert vp.display_to_img(333.7, 91.2) == vps[1].display_to_img(333.7, 91.2)
+        assert vp.visible_image_rect() == vps[1].visible_image_rect()
+        assert vp.imgrect_to_display((5, 6, 70, 80)) == vps[1].imgrect_to_display((5, 6, 70, 80))
+    # geometry
+    boxes = [(0, 0, 40, 30), (50, 60, 40, 30)]
+    for meta in ({}, {"base_unit": {"x": 0, "y": 0, "w": 40, "h": 30}, "units_x": 2},
+                 {"base_unit": {"x": 0, "y": 0, "w": 40, "h": 30}, "units_x": 2,
+                  "unit_space_x": 10}):
+        g, jg = tgeo.infer_grid_params(boxes, meta), jgeo.infer_grid_params(boxes, meta)
+        assert type(g).__name__ == type(jg).__name__
+        assert tgeo.grid_boxes(g) == jgeo.grid_boxes(jg)
+        np.testing.assert_array_equal(tgeo.grid_origins(g), jgeo.grid_origins(jg))
+    for excl in ({"shape": "rect", "x": -4, "y": 50, "w": 90, "h": 3},
+                 {"shape": "circle", "cx": 39, "cy": 2, "r": 9},
+                 {"shape": "circle", "cx": 12, "cy": 12, "r": 0}, {"shape": "poly"}):
+        assert tgeo.clamp_exclusion_to_base_unit(excl, 40, 30) == \
+            jgeo.clamp_exclusion_to_base_unit(excl, 40, 30)
+    with pytest.raises(ValueError):
+        tgeo.BoxGrid(((0, 0, 4, 4), (5, 5, 4, 5)))
+    # persistence: the same JSON documents, CSV rows and mask pixels
+    grid = tcfg.GridParams(base_unit=(3, 4, 20, 16), units_x=2, blocks_y=2, block_space_y=5)
+    jgrid = jcfg.GridParams(**grid.__dict__)
+    excl = [{"shape": "rect", "x": 1, "y": 2, "w": 3, "h": 4}]
+    cents = {0: (1.5, 2.25), 3: (7.0, 8.0)}
+    doc = tper.GridDocument(tgeo.grid_boxes(grid), tper.grid_metadata(grid, 64, 48),
+                            excl, cents)
+    jdoc = jper.GridDocument(jgeo.grid_boxes(jgrid), jper.grid_metadata(jgrid, 64, 48),
+                             excl, cents)
+    assert tper.save_grid(doc, tmp_path / "t.json") == jper.save_grid(jdoc, tmp_path / "j.json")
+    assert json.load(open(tmp_path / "t.json")) == json.load(open(tmp_path / "j.json"))
+    box_meta = tper.grid_metadata(tgeo.BoxGrid(((0, 0, 5, 5),)), 9, 9)
+    assert box_meta == jper.grid_metadata(jgeo.BoxGrid(((0, 0, 5, 5),)), 9, 9)
+    for src in (tmp_path / "t.json", [{"x": 1, "y": 2, "w": 3, "h": 4}, {"bad": 1}],
+                {"boxes": [{"index": 1, "x": 0, "y": 0, "w": 2, "h": 2},
+                           {"index": 0, "x": 5, "y": 0, "w": 2, "h": 2}],
+                 "exclusion_alignment": {"type": "other", "ref_centroids": {"0": {}}}}):
+        a, b = tper.load_grid(src), jper.load_grid(src)
+        assert (a.boxes, a.metadata, a.exclusions, a.ref_centroids, a.version) == \
+            (b.boxes, b.metadata, b.exclusions, b.ref_centroids, b.version)
+        assert tgeo.grid_boxes(a.grid_params) == jgeo.grid_boxes(b.grid_params)
+        assert a.unit_shape == b.unit_shape
+    rng = np.random.RandomState(4)
+    masks = [((rng.rand(16, 20) > 0.5) * 255).astype(np.uint8), None,
+             np.zeros((16, 20), np.uint8)]
+    paths = (tper.export_masks_and_csv(masks, tmp_path / "tm"),
+             jper.export_masks_and_csv(masks, tmp_path / "jm"))
+    assert tper.load_masks_csv(paths[0]) == jper.load_masks_csv(paths[1])
+    assert tper.export_thumbnails(masks, tmp_path / "tt") == 2
+    import cv2
+
+    for name in ("tm/mask_0000.png", "tm/mask_0002.png", "tt/unit_0000.png"):
+        got = cv2.imread(str(tmp_path / name), cv2.IMREAD_UNCHANGED)
+        np.testing.assert_array_equal(got, masks[int(name[-5])])
+    combined = tper.export_combined_json(doc, masks, tmp_path / "c.json")
+    jcombined = jper.export_combined_json(jdoc, masks)
+    assert [m["index"] for m in combined["masks"]] == [m["index"] for m in jcombined["masks"]]
+    assert {k: v for k, v in combined.items() if k != "masks"} == \
+        {k: v for k, v in jcombined.items() if k != "masks"}
+    for fn, src in ((tper.import_combined_json, tmp_path / "c.json"),
+                    (jper.import_combined_json, jcombined)):
+        d, ms = fn(src)
+        assert d.boxes == doc.boxes and sorted(ms) == [0, 2]
+        np.testing.assert_array_equal(ms[0], masks[0])
+
+
+def test_png_encoder_and_gray_decode_match_cv2(tmp_path):
+    """The port's PNG bytes decode (cv2) to the same pixels; the host
+    decode and the BT.601 conversion equal the JAX package's."""
+    import cv2
+
+    from tpu_inspect.imageio import _to_gray_u8 as j_to_gray
+    from tpu_inspect.imageio import crops_for_grid as j_crops_for_grid
+    from tpu_inspect.imageio import decode_gray as j_decode_gray
+    from tpu_inspect.ops.color import bgr_to_gray as j_bgr_to_gray
+
+    from tpu_inspect_torch import imageio as tio
+    from tpu_inspect_torch.ops.color import bgr_to_gray, rgb_to_gray
+    from tpu_inspect_torch.png import encode_png
+
+    rng = np.random.RandomState(8)
+    gray = rng.randint(0, 256, (13, 17), dtype=np.uint8)
+    rgb = rng.randint(0, 256, (9, 11, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(encode_png(gray), np.uint8),
+                                               cv2.IMREAD_UNCHANGED), gray)
+    np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(encode_png(rgb), np.uint8),
+                                               cv2.IMREAD_UNCHANGED)[:, :, ::-1], rgb)
+    with pytest.raises(ValueError):
+        encode_png(np.zeros((4, 4, 2), np.uint8))
+    bgr = rng.randint(0, 256, (2, 7, 9, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(bgr_to_gray(_t(bgr)).numpy(),
+                                  np.asarray(j_bgr_to_gray(jnp.asarray(bgr))))
+    np.testing.assert_array_equal(rgb_to_gray(_t(bgr[..., ::-1])).numpy(),
+                                  bgr_to_gray(_t(bgr)).numpy())
+    for img in (gray, rgb, np.dstack([rgb, rgb[..., :1]]),
+                (rng.rand(6, 5) * 65535).astype(np.uint16),
+                rng.rand(6, 5).astype(np.float32) * 7 - 2):
+        np.testing.assert_array_equal(tio._to_gray_u8(img), j_to_gray(img))
+    path = str(tmp_path / "c.png")
+    cv2.imwrite(path, rgb)
+    np.testing.assert_array_equal(tio.load_gray(path), j_to_gray(rgb))
+    np.testing.assert_array_equal(tio.decode_gray(encode_png(gray)), j_decode_gray(
+        cv2.imencode(".png", gray)[1].tobytes()))
+    with pytest.raises(RuntimeError):
+        tio.load_gray(str(tmp_path / "missing.png"))
+    grid = tcfg.GridParams(base_unit=(2, 3, 5, 4), units_x=2, units_y=2, unit_space_x=1)
+    np.testing.assert_array_equal(
+        tio.crops_for_grid(gray, grid, "cpu").numpy(),
+        np.asarray(j_crops_for_grid(gray, jcfg.GridParams(**grid.__dict__))))

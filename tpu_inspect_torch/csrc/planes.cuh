@@ -1,4 +1,5 @@
-// Per-unit plane primitives shared by the seg-tail and blob-filter kernels.
+// Per-unit plane primitives shared by the seg-tail and blob-filter kernels
+// (kernel J, label_stats.cu, uses the 2x2 block grid's codes and edges).
 //
 // Every function here is executed by ALL threads of one CTA, which owns one
 // unit: work is strided over the CTA's threads and phases are separated by

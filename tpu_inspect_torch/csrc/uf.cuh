@@ -1,5 +1,7 @@
 // Union-find over the pixels of a [U, H, W] batch, shared by kernel D
-// (flood.cu, seeded reachability) and kernel E (label.cu, min-index labels).
+// (flood.cu, seeded reachability) and kernel E (label.cu, min-index labels);
+// kernel J (label_stats.cu) runs the same find and union over one unit's
+// 2x2 block grid inside one CTA.
 //
 // One thread per pixel over the whole batch (a grid over pixels, not one CTA
 // per unit). Pixels are global indices g = u*H*W + y*W + x; unions never
@@ -29,28 +31,50 @@ constexpr int kThreads = 256;
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // Parent reads bypass L1 (ld.global.cg): other threads' atomicMin links
-// land in L2, and a stale L1 line would only cost extra retries.
+// land in L2, and a stale L1 line would only cost extra retries. With
+// kShared the parents live in the CTA's shared memory (kernel J): volatile
+// reads, so every step sees the other threads' links.
+template <bool kShared = false>
 __device__ inline int load_parent(const int* parent, int x) {
-  return __ldcg(parent + x);
+  if constexpr (kShared) {
+    return *reinterpret_cast<const volatile int*>(parent + x);
+  } else {
+    return __ldcg(parent + x);
+  }
 }
 
-__device__ inline int find_root(const int* parent, int x, int n, int* err) {
-  int p = load_parent(parent, x);
+// With kShared the walk also halves the path (each node it passes is hung
+// under its grandparent), a store that costs little in shared memory. That
+// is safe beside concurrent unions: the store only replaces a non-root's
+// parent with one of its ancestors, so indices still decrease along every
+// path, and a union whose atomicMin it overwrites has seen a non-root and
+// retries with that node's parent.
+template <bool kShared = false>
+__device__ inline int find_root(int* parent, int x, int n, int* err) {
+  int p = load_parent<kShared>(parent, x);
   for (int steps = 0; p != x; ++steps) {
     if (steps > n) {
       atomicExch(err, 1);
       break;
     }
+    if constexpr (kShared) {
+      const int gp = load_parent<kShared>(parent, p);
+      if (gp != p) {
+        *reinterpret_cast<volatile int*>(parent + x) = gp;
+        p = gp;
+      }
+    }
     x = p;
-    p = load_parent(parent, x);
+    p = load_parent<kShared>(parent, x);
   }
   return x;
 }
 
+template <bool kShared = false>
 __device__ inline void unite(int* parent, int a, int b, int n, int* err) {
   for (int iter = 0; iter <= n; ++iter) {
-    a = find_root(parent, a, n, err);
-    b = find_root(parent, b, n, err);
+    a = find_root<kShared>(parent, a, n, err);
+    b = find_root<kShared>(parent, b, n, err);
     if (a == b) return;
     if (a > b) {
       const int t = a;

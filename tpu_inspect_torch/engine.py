@@ -12,27 +12,35 @@ per-unit masks, defect blobs and X/O verdicts::
     filter (kernel C: ROI AND, 3x3 open for the residual, contourArea
     filter, filled paint) -> verdicts
 
+The threshold method with a median window of k*k >= 2048 (``median_k``
+>= 47), where kernel B's two rank queries do not apply, takes the full
+median instead: the background is kernel H's k x k median blur of every
+row, and the candidates are ``|x - bg| > thr`` (the JAX package's
+``engine.py:461-465``), then the same blob filter.
+
 The whole-image route: a unit of more than ``WHOLE_MIN_PX`` pixels (a
 whole 4096x3000 capture, ``bench.py``'s config1 and config1defect), or one
 too large for kernel A's or C's int32 sums, takes the port of the JAX
 package's unfused whole-plane path instead of kernels A and C, on both
 devices alike (:func:`_whole_route`):
 
-    seg tail: x <= thr (or x > 0), close+open (torch ops), hole fill
+    seg tail: x <= thr (or x > 0), close+open (kernel I), hole fill
     (kernel D, border form), labels (kernel E), largest-CC mask and int64
     stats (kernel F); ROI tail: the same with the erode and no fill;
-    defect tail: candidates (kernel B on the whole plane, or Canny), ROI
-    AND, 3x3 open (torch ops), exterior (kernel D), fill labels (kernel E),
-    top-level blobs (kernel D seeded with each fill region's first pixel),
-    Green's filter and filled paint (kernel G)
+    defect tail: candidates (kernel B on the whole plane, kernel H's full
+    median, or Canny), ROI AND, 3x3 open (kernel I), exterior (kernel D),
+    fill labels (kernel E), top-level blobs (kernel D seeded with each fill
+    region's first pixel), Green's filter and filled paint (kernel G)
 
 :func:`defect_intermediates` is the per-unit diagnostic pass; its contour
-analysis runs kernel D (exterior flood) and kernel E (labeling, twice).
+analysis runs kernel D (exterior flood) and kernel E (labeling, twice), and
+its 3x3 open kernel I. Kernel J (labels and the largest component's stats
+in one launch) serves the session's erosion preview
+(:func:`tpu_inspect_torch.render.erosion_outline_mask`).
 
-Every stage is bit-exact vs the JAX package. On ``device="cuda"`` the seven
+Every stage is bit-exact vs the JAX package. On ``device="cuda"`` the ten
 kernels are the hand-written CUDA sources in ``csrc/``; on ``device="cpu"``
-their plain PyTorch versions run. Median windows with k*k >= 2048 raise
-``NotImplementedError`` (ROADMAP.md queue B).
+their plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -56,14 +64,18 @@ from tpu_inspect_torch.ops.flood import propagate
 from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_fits, tail_mask
 from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
 from tpu_inspect_torch.ops.hole_fill import exterior_background
-from tpu_inspect_torch.ops.median import median_residual_mask
+from tpu_inspect_torch.ops.median import median_blur_u8, median_residual_mask
 from tpu_inspect_torch.ops.morphology import (
-    apply_stages,
     close_open_stages,
+    morph_chain,
     open_stages,
     rect_erode_stages,
 )
-from tpu_inspect_torch.ops.threshold import adaptive_threshold_inv, otsu_threshold
+from tpu_inspect_torch.ops.threshold import (
+    adaptive_threshold_inv,
+    otsu_threshold,
+    threshold_binary,
+)
 
 
 @dataclass
@@ -206,16 +218,6 @@ def exclusion_zone(shape, rects: np.ndarray, circles: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
-def _check_defect(defect: DefectParams) -> None:
-    if defect.method == "threshold":
-        k = _median_k(defect)
-        if k * k >= 2048:
-            raise NotImplementedError(
-                f"median_k={k}: the median-residual kernel takes k*k < 2048; "
-                "larger windows are not ported yet (ROADMAP.md queue B)"
-            )
-
-
 def _median_k(defect: DefectParams) -> int:
     k = int(defect.median_k)
     return k + 1 if k % 2 == 0 else k
@@ -248,7 +250,7 @@ def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None):
     (kernels D, E and F on whole planes), with int64 stats: the port of the
     JAX package's ``raw_segment`` + ``largest_component_sums`` and
     ``_defect_roi_fallback``."""
-    m = tail_mask(x, stages, thr)
+    m = tail_mask(x, stages, thr, morph=morph_chain)
     if fill:
         m = m | ~exterior_background(m)
     best, stats = component_stats(label_components(m), m)
@@ -276,7 +278,7 @@ def _whole_blobs(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
     port of ``contour.filter_and_select`` at whole-image size): the fill
     regions (:func:`_fill_regions`), then kernel G for the Green's filter
     and the paint."""
-    m = candidate_mask(fg, roi, pre_open)
+    m = candidate_mask(fg, roi, pre_open, morph=morph_chain)
     return blob_select(*_fill_regions(m), max_x2, min_x2=min_x2)
 
 
@@ -345,12 +347,18 @@ def _defect_roi(seg_masks, params: DefectParams):
 
 def _candidates(crops, params: DefectParams, roi_stats):
     """Pre-ROI candidate plane: the median residual over the ROI rows, or
-    Canny edges (indexing_ui.py:1519-1539)."""
+    Canny edges (indexing_ui.py:1519-1539). A median window of k*k >= 2048
+    takes the full median blur (kernel H) over every row, and
+    THRESH_BINARY of |x - bg| (``engine.py:461-465`` of the JAX package)."""
     thr = int(params.threshold)
     if params.method == "canny":
         return canny_u8(crops, max(1, thr // 2), max(2, thr))
+    k = _median_k(params)
+    if k * k >= 2048:
+        bg = median_blur_u8(crops, k)
+        return threshold_binary((crops.to(torch.int16) - bg.to(torch.int16)).abs(), thr)
     return median_residual_mask(
-        crops, _median_k(params), thr,
+        crops, k, thr,
         row_lo=roi_stats[:, 4].to(torch.int32).contiguous(),
         row_hi=roi_stats[:, 5].to(torch.int32).contiguous(),
     )
@@ -405,7 +413,10 @@ def _as_u8(x, dev: torch.device) -> torch.Tensor:
         if x.dtype != torch.uint8:
             raise ValueError(f"expected a uint8 tensor, got {x.dtype}")
         return x.to(dev).contiguous()
-    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(dev)
+    a = np.ascontiguousarray(x, dtype=np.uint8)
+    if not a.flags.writeable:  # torch wraps only writeable arrays
+        a = a.copy()
+    return torch.from_numpy(a).to(dev)
 
 
 def defect_intermediates(crop, seg_mask, params: DefectParams,
@@ -422,7 +433,6 @@ def defect_intermediates(crop, seg_mask, params: DefectParams,
     """
     dev = resolve_device(device)
     params = params.validated()
-    _check_defect(params)
     crops = _as_u8(crop, dev)[None]
     masks = _as_u8(seg_mask, dev)[None]
     out = {
@@ -444,7 +454,7 @@ def defect_intermediates(crop, seg_mask, params: DefectParams,
     cand = _candidates(crops, params, st)
     cand = torch.where(roi > 0, cand, torch.zeros_like(cand))
     if params.method == "threshold":
-        cand = apply_stages(cand, open_stages(3))
+        cand = morph_chain(cand, open_stages(3))
         out["resid_area"] = int((cand > 0).sum())
     analysis = analyze_blobs(cand > 0)
     a2 = _to_numpy(analysis.contour_area_x2[0])
@@ -476,7 +486,6 @@ def detect_defects_batch(crops, seg_masks, params: DefectParams,
     :1669-1700)."""
     dev = resolve_device(device)
     params = params.validated()
-    _check_defect(params)
     return _insp_result(*_defect(_as_u8(crops, dev), _as_u8(seg_masks, dev), params))
 
 
@@ -487,7 +496,6 @@ def inspect_units(crops, seg: SegmentationParams, defect: DefectParams,
     (run_inspection parity, indexing_ui.py:1634-1709)."""
     dev = resolve_device(device)
     seg, defect = seg.validated(), defect.validated()
-    _check_defect(defect)
     crops_t = _as_u8(crops, dev)
     seg_out = _segment(crops_t, seg, exclusions, ref_centroids, bool(is_reference))
     return _seg_result(*seg_out), _insp_result(*_defect(crops_t, seg_out[0], defect))
@@ -507,8 +515,6 @@ def inspect_image(image, grid: GridParams, seg: SegmentationParams,
     dev = resolve_device(device)
     seg = seg.validated()
     dparams = (defect or DefectParams()).validated()
-    if defect is not None:
-        _check_defect(dparams)
     image_t = _as_u8(image, dev)
     origins = torch.from_numpy(grid_origins(grid)).to(dev)
     _, _, w, h = grid.base_unit

@@ -1,26 +1,67 @@
-"""Grid-indexing geometry (pure host-side integer math).
+"""Grid-indexing and exclusion geometry (pure host-side integer math).
 
-Copy of :func:`tpu_inspect.geometry.grid_boxes` / ``grid_origins``
-(indexing_ui.py:2171-2201); the engine consumes the origins as a small int
-tensor.
+Copy of :mod:`tpu_inspect.geometry`'s ``BoxGrid``, ``grid_boxes``,
+``grid_origins``, ``infer_grid_params`` and ``clamp_exclusion_to_base_unit``
+(indexing_ui.py:2171-2201, :1887-1946); the engine consumes the origins as
+a small int tensor.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
 from tpu_inspect_torch.config import GridParams
 
 
-def grid_boxes(p: GridParams) -> list[tuple[int, int, int, int]]:
+@dataclass(frozen=True)
+class BoxGrid:
+    """A grid given by explicit unit boxes instead of indexing parameters.
+
+    Legacy grid JSONs (bare box lists, or metadata that no longer
+    regenerates the stored boxes — accepted by the reference importer,
+    indexing_ui.py:2874-2889) carry no reconstructible GridParams; driving
+    the engine from the boxes directly preserves every unit instead of
+    collapsing to unit 0. Boxes must share one (w, h) — the reference
+    generates uniform grids, and the batched engine requires one unit shape.
+    """
+
+    boxes: tuple[tuple[int, int, int, int], ...]
+
+    def __post_init__(self):
+        if not self.boxes:
+            raise ValueError("BoxGrid needs at least one box")
+        w, h = self.boxes[0][2], self.boxes[0][3]
+        if w <= 0 or h <= 0:
+            raise ValueError(f"non-positive unit size: {(w, h)}")
+        for b in self.boxes:
+            if (b[2], b[3]) != (w, h):
+                raise ValueError(
+                    f"non-uniform unit sizes: {(b[2], b[3])} != {(w, h)}"
+                )
+
+    @property
+    def base_unit(self) -> tuple[int, int, int, int]:
+        return self.boxes[0]
+
+    @property
+    def num_units(self) -> int:
+        return len(self.boxes)
+
+
+def grid_boxes(p: GridParams | BoxGrid) -> list[tuple[int, int, int, int]]:
     """Generate unit rects (x, y, w, h) in reference index order.
 
     Index order is ``for by: for uy: for bx: for ux`` — a row of units spans
     all X-blocks before moving down (indexing_ui.py:2184-2191). The position
     formula is
     ``x = base.x + bx*(units_x*w + (units_x-1)*sux + sbx) + ux*(w + sux)``
-    (indexing_ui.py:2188-2189).
+    (indexing_ui.py:2188-2189). A :class:`BoxGrid` returns its explicit
+    boxes unchanged.
     """
+    if isinstance(p, BoxGrid):
+        return list(p.boxes)
     bx0, by0, w, h = (int(v) for v in p.base_unit)
     sux, suy = int(p.unit_space_x), int(p.unit_space_y)
     sbx, sby = int(p.block_space_x), int(p.block_space_y)
@@ -40,7 +81,69 @@ def grid_boxes(p: GridParams) -> list[tuple[int, int, int, int]]:
     return boxes
 
 
-def grid_origins(p: GridParams) -> np.ndarray:
+def grid_origins(p: GridParams | BoxGrid) -> np.ndarray:
     """Unit top-left corners as an ``[units, 2]`` int32 array of (x, y)."""
     boxes = grid_boxes(p)
     return np.array([[b[0], b[1]] for b in boxes], dtype=np.int32).reshape(-1, 2)
+
+
+def infer_grid_params(
+    boxes: list[tuple[int, int, int, int]], meta: dict
+) -> GridParams | BoxGrid | None:
+    """Reconstruct a grid from a grid-JSON (persistence helper).
+
+    Returns GridParams only when the metadata regenerates the stored boxes
+    exactly; otherwise (bare-list legacy imports, stale/absent metadata) a
+    :class:`BoxGrid` over the explicit boxes, so no unit is silently
+    dropped. None when there are no boxes at all.
+    """
+    if not boxes:
+        return None
+    bu = meta.get("base_unit")
+    if bu is not None:
+        params = GridParams(
+            base_unit=(int(bu["x"]), int(bu["y"]), int(bu["w"]), int(bu["h"])),
+            units_x=int(meta.get("units_x", 1) or 1),
+            units_y=int(meta.get("units_y", 1) or 1),
+            blocks_x=max(1, int(meta.get("blocks_x", 1) or 1)),
+            blocks_y=max(1, int(meta.get("blocks_y", 1) or 1)),
+            unit_space_x=int(meta.get("unit_space_x", 0) or 0),
+            unit_space_y=int(meta.get("unit_space_y", 0) or 0),
+            block_space_x=int(meta.get("block_space_x", 0) or 0),
+            block_space_y=int(meta.get("block_space_y", 0) or 0),
+        )
+        if grid_boxes(params) == [tuple(int(v) for v in b) for b in boxes]:
+            return params
+    return BoxGrid(tuple(tuple(int(v) for v in b) for b in boxes))
+
+
+def clamp_exclusion_to_base_unit(excl: dict, bw: int, bh: int) -> dict:
+    """Clamp an exclusion to the base-unit bounds (indexing_ui.py:1922-1946).
+
+    Rects: x,y clamped into [0, dim-1], then w,h clamped to stay inside.
+    Circles: center clamped into the unit, then
+    ``r = min(r, max(1,cx), max(1,cy), max(1, bw-cx-1), max(1, bh-cy-1))``.
+    Returns a new dict (the reference mutates in place).
+    """
+    out = dict(excl)
+    shape = out.get("shape")
+    if shape == "rect":
+        x = int(out.get("x", 0))
+        y = int(out.get("y", 0))
+        w = int(out.get("w", 1))
+        h = int(out.get("h", 1))
+        x = max(0, min(x, max(0, bw - 1)))
+        y = max(0, min(y, max(0, bh - 1)))
+        w = max(1, min(w, max(1, bw - x)))
+        h = max(1, min(h, max(1, bh - y)))
+        out.update(x=x, y=y, w=w, h=h)
+    elif shape == "circle":
+        cx = int(out.get("cx", 0))
+        cy = int(out.get("cy", 0))
+        r = int(out.get("r", 1))
+        cx = max(0, min(cx, max(0, bw - 1)))
+        cy = max(0, min(cy, max(0, bh - 1)))
+        r = max(1, r)
+        r = min(r, max(1, cx), max(1, cy), max(1, bw - cx - 1), max(1, bh - cy - 1))
+        out.update(cx=cx, cy=cy, r=r)
+    return out

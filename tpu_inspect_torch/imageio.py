@@ -1,8 +1,60 @@
-"""Crop gather (the port of :func:`tpu_inspect.imageio.gather_crops`)."""
+"""Image decode and the crop gather (the port of :mod:`tpu_inspect.imageio`).
+
+Decode parity with the reference's robust loader (ImageWidget.load_image,
+indexing_ui.py:145-194): cv2 decodes on the host (imported inside the
+decode functions only, as the JAX package's fallback does), uint16 inputs
+scale /256, other non-uint8 inputs are min-max normalized, and BGR(A)
+converts to gray with OpenCV's fixed-point weights (:mod:`ops.color`).
+
+The crop gather replaces the per-unit ``QImage.copy`` host loop
+(indexing_ui.py:2270): all unit origins go to the device as one [U, 2]
+tensor and one gather produces the [U, h, w] crop batch there.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from tpu_inspect_torch.device import resolve_device
+from tpu_inspect_torch.geometry import grid_origins
+from tpu_inspect_torch.ops.color import bgr_to_gray
+
+
+def load_gray(path: str) -> np.ndarray:
+    """Decode an image file to uint8 grayscale (reference loader semantics:
+    uint16 /256, float min-max normalized, BGR(A) to gray)."""
+    import cv2
+
+    img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise RuntimeError(f"Unable to load image: {path}")
+    return _to_gray_u8(img)
+
+
+def decode_gray(data: bytes) -> np.ndarray:
+    """load_gray for in-memory encoded bytes (drag-and-drop uploads,
+    indexing_ui.py:1134-1161)."""
+    import cv2
+
+    img = cv2.imdecode(np.frombuffer(data, dtype=np.uint8), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise RuntimeError("Unable to decode image data")
+    return _to_gray_u8(img)
+
+
+def _to_gray_u8(img: np.ndarray) -> np.ndarray:
+    if img.dtype == np.uint16:
+        img = (img / 256).astype(np.uint8)
+    elif img.dtype != np.uint8:
+        import cv2
+
+        img = cv2.normalize(img, None, 0, 255, cv2.NORM_MINMAX).astype(np.uint8)
+    if img.ndim == 3:
+        if img.shape[2] == 4:
+            img = img[:, :, :3]
+        img = bgr_to_gray(torch.from_numpy(np.ascontiguousarray(img))).numpy()
+    return img
 
 
 def gather_crops(
@@ -26,3 +78,16 @@ def gather_crops(
     rows = y0[:, None] + torch.arange(h, device=image.device)[None, :]
     cols = x0[:, None] + torch.arange(w, device=image.device)[None, :]
     return image[rows[:, :, None], cols[:, None, :]].contiguous()
+
+
+def crops_for_grid(image, grid, device: str | torch.device = "cuda") -> torch.Tensor:
+    """Gather all grid-unit crops of a grayscale image (a numpy array or a
+    uint8 tensor) on ``device``: [U, h, w] uint8."""
+    dev = resolve_device(device)
+    if isinstance(image, torch.Tensor):
+        image_t = image.to(device=dev, dtype=torch.uint8)
+    else:
+        image_t = torch.from_numpy(np.ascontiguousarray(image, dtype=np.uint8)).to(dev)
+    origins = torch.from_numpy(grid_origins(grid)).to(dev)
+    _, _, w, h = grid.base_unit
+    return gather_crops(image_t, origins, (int(h), int(w)))

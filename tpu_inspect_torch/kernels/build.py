@@ -53,6 +53,12 @@ _SIGNATURES = {
     # fill_labels, top, ext, max_x2, table, out, area, sums, err, U, H, W,
     # min_x2, stream
     "tik_blob_select": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, U, H, W, k, stream
+    "tik_median_blur": (_P, _P, _I, _I, _I, _I, _P),
+    # in, out, stage, U, H, W, erode, rx, ry, tile rows, stream
+    "tik_morph_stage": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # fg, mask, stats, scratch, err, U, H, W, stream
+    "tik_label_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

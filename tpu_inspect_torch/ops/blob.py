@@ -34,12 +34,14 @@ from tpu_inspect_torch.ops.morphology import (
 )
 
 
-def candidate_mask(fg, roi=None, pre_open=False) -> torch.Tensor:
+def candidate_mask(fg, roi=None, pre_open=False, morph=apply_stages) -> torch.Tensor:
     """The filter's input: ``fg`` ANDed with ``roi`` (when given), then the
-    3x3-ellipse open (with ``pre_open``); [U, H, W] bool."""
+    3x3-ellipse open by ``morph`` (with ``pre_open``; the plain version
+    keeps :func:`apply_stages`, the whole-image route passes kernel I's
+    ``morph_chain``); [U, H, W] bool."""
     v = fg if roi is None else torch.where(roi > 0, fg, torch.zeros_like(fg))
     if pre_open:
-        v = apply_stages(v, open_stages(3))
+        v = morph(v, open_stages(3))
     return v > 0
 
 

@@ -1,4 +1,5 @@
-"""Connected components, batched [U, H, W]; kernel E — min-index labeling.
+"""Connected components, batched [U, H, W]; kernel E — min-index labeling;
+kernel F — largest-component stats from labels; kernel J — both in one.
 
 Port of :mod:`tpu_inspect.ops.cc`: 8-connected labels whose value is the
 linear index ``y*W + x`` of the component's raster-first pixel (BIG on
@@ -6,7 +7,10 @@ background, int32), and the largest component with OpenCV's tie-break.
 
 :func:`label_components` launches ``csrc/label.cu`` (the port of
 :func:`tpu_inspect.ops.cc_pallas.label_components_pallas`) for CUDA tensors
-and runs :func:`label_components_plain` for CPU tensors.
+and runs :func:`label_components_plain` for CPU tensors;
+:func:`component_stats` (kernel F, ``csrc/cc_stats.cu``) and
+:func:`largest_component_sums` (kernel J, ``csrc/label_stats.cu``) do the
+same with :func:`component_stats_plain` and :func:`largest_component`.
 
 Labels come from a min-label fixpoint: per iteration, a 3x3 neighbourhood
 min (8-connectivity only) and segmented cummin sweeps along rows and
@@ -201,4 +205,49 @@ def component_stats(labels: torch.Tensor, fg: torch.Tensor):
     build.check("component_stats", code)
     LAUNCHES["cc_stats"] += 1
     build.check_bounded("component_stats", err)
+    return mask.view(torch.bool), stats
+
+
+# Kernel J runs one CTA per unit: a unit above this many pixels (a whole
+# capture) takes kernels E then F instead. The same size as the engine's
+# whole-image gate (``engine.WHOLE_MIN_PX``).
+LABEL_STATS_MAX_PX = 1 << 20
+
+
+def largest_component_sums(fg: torch.Tensor):
+    """Largest 8-connected component per unit from the plane itself; kernel
+    J (the port of :func:`tpu_inspect.ops.cc.largest_component_sums` on its
+    TPU branch, ``cc_pallas.py: largest_component_stats_pallas``).
+
+    ``fg`` [U, H, W] bool (or uint8, nonzero = fg). Returns exactly what
+    ``component_stats(label_components(fg), fg)`` does: (mask [U, H, W]
+    bool, stats [U, 8] int64 (area, sx, sy, has_fg, row_lo, row_hi, col_lo,
+    col_hi)), OpenCV's block-raster tie-break included, with no label plane
+    in between. Launches ``csrc/label_stats.cu`` for CUDA tensors and runs
+    :func:`largest_component` for CPU tensors; a unit above
+    ``LABEL_STATS_MAX_PX`` pixels raises ValueError."""
+    fg = as_planes(fg, "largest_component_sums")
+    u, h, w = fg.shape
+    if h * w > LABEL_STATS_MAX_PX:
+        raise ValueError(
+            f"largest_component_sums: a {h}x{w} unit is above {LABEL_STATS_MAX_PX} px; "
+            "use component_stats(label_components(fg), fg)"
+        )
+    if fg.device.type == "cpu":
+        return largest_component(fg != 0)
+    dev = fg.device
+    mask = torch.empty((u, h, w), dtype=torch.uint8, device=dev)
+    stats = torch.empty((u, 8), dtype=torch.int64, device=dev)
+    # parents, areas and codes of the 2x2 blocks, for units too large for
+    # the kernel's shared memory
+    scratch = torch.empty((3 * u * ((h + 1) // 2) * ((w + 1) // 2),), dtype=torch.int32,
+                          device=dev)
+    err = torch.zeros((1,), dtype=torch.int32, device=dev)
+    code = build.lib().tik_label_stats(
+        fg.data_ptr(), mask.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
+        err.data_ptr(), u, h, w, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check("largest_component_sums", code)
+    LAUNCHES["label_stats"] += 1
+    build.check_bounded("largest_component_sums", err)
     return mask.view(torch.bool), stats

@@ -28,14 +28,16 @@ from tpu_inspect_torch.ops.threshold import threshold_binary_inv
 STAT_FIELDS = ("area", "sx", "sy", "has_fg", "row_lo", "row_hi", "col_lo", "col_hi")
 
 
-def tail_mask(x, stages=(), thr=None) -> torch.Tensor:
+def tail_mask(x, stages=(), thr=None, morph=apply_stages) -> torch.Tensor:
     """The tail's head: ``x <= thr`` (or ``x > 0`` without ``thr``), then
-    the erode/dilate stage chain; [U, H, W] bool."""
+    the erode/dilate stage chain by ``morph`` (the plain version keeps
+    :func:`apply_stages`; the whole-image route passes kernel I's
+    ``morph_chain``); [U, H, W] bool."""
     if thr is not None:
         v = threshold_binary_inv(x, thr)
     else:
         v = torch.where(x > 0, 255, 0).to(torch.uint8)
-    return apply_stages(v, stages) > 0
+    return morph(v, stages) > 0
 
 
 def seg_tail_fits(h: int, w: int) -> bool:

@@ -1,4 +1,4 @@
-"""Kernel B — the median residual mask.
+"""Kernel B — the median residual mask; kernel H — the full median blur.
 
 Port of :func:`tpu_inspect.ops.median_pallas.median_residual_mask_pallas`:
 255 where |x - medianBlur_k(x)| > thr (BORDER_REPLICATE), else 0, bit-exact
@@ -13,6 +13,13 @@ unwritten; the defect path ANDs the result with the ROI either way).
 
 :func:`median_residual_mask` launches ``csrc/median_residual.cu`` for CUDA
 tensors and runs :func:`median_residual_mask_plain` for CPU tensors.
+
+:func:`median_blur_u8` is the full median value for any odd k (the port of
+:func:`tpu_inspect.ops.median.median_blur_u8`, whose TPU kernel is
+``median_pallas.py: median_blur_u8_pallas``): the defect pass's
+background for windows with k*k >= 2048, where the two rank queries of
+kernel B do not apply. It launches ``csrc/median_blur.cu`` for CUDA tensors
+and runs :func:`median_blur_u8_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -90,4 +97,80 @@ def median_residual_mask(x, k: int, thr: int, row_lo=None, row_hi=None):
     )
     build.check("median_residual", err)
     LAUNCHES["median_residual"] += 1
+    return out
+
+
+def _check_blur_k(k: int) -> None:
+    if k % 2 != 1 or k < 1:
+        raise ValueError(f"median_blur_u8: k must be odd and >= 1, got {k}")
+
+
+def median_blur_u8_plain(x, k: int, rows_per_step: int = 8):
+    """The plain PyTorch version of :func:`median_blur_u8` (same contract):
+    the histogram scan of :func:`tpu_inspect.ops.median._median_blur_u8_scan`.
+
+    A per-column histogram ``[U, W, 256]`` of the vertical window is carried
+    down the rows (the entering row added, the leaving row subtracted, both
+    clamped: BORDER_REPLICATE); per block of ``rows_per_step`` output rows,
+    a cumsum along W (edge columns replicated) turns the snapshots into every
+    pixel's window histogram, and the median is the count of bins whose cdf
+    is below the rank. Memory is bounded by the block, whatever H or k."""
+    _check_blur_k(k)
+    if k == 1:
+        return x
+    u, h, w = x.shape
+    r = k // 2
+    rank = (k * k + 1) // 2  # 1-based order statistic of the median
+    count = torch.int32 if k * k < 2**31 else torch.int64
+    bins = torch.arange(256, device=x.device, dtype=torch.int16)
+    xi = x.to(torch.int16)
+
+    def onehot_row(y: int) -> torch.Tensor:
+        # [U, W, 256] counts of row y, clamped
+        row = xi[:, min(max(y, 0), h - 1), :]
+        return (row[:, :, None] == bins).to(count)
+
+    colhist = onehot_row(0) * (r + 1)
+    for dy in range(1, r + 1):
+        colhist += onehot_row(dy)
+    out = torch.empty_like(x)
+    step = max(1, int(rows_per_step))
+    for y0 in range(0, h, step):
+        snaps = []
+        for y in range(y0, min(h, y0 + step)):
+            snaps.append(colhist)
+            colhist = colhist + onehot_row(y + r + 1) - onehot_row(y - r)
+        ch = torch.stack(snaps, dim=1)  # [U, R, W, 256]
+        p = torch.cat([ch[:, :, :1].expand(-1, -1, r, -1), ch,
+                       ch[:, :, -1:].expand(-1, -1, r, -1)], dim=2)
+        cum = torch.cumsum(p, dim=2, dtype=count)
+        cum = torch.cat([torch.zeros_like(cum[:, :, :1]), cum], dim=2)
+        # the window at column j covers padded columns j .. j + k - 1
+        cdf = torch.cumsum(cum[:, :, k:] - cum[:, :, :-k], dim=3, dtype=count)
+        out[:, y0 : y0 + len(snaps)] = (cdf < rank).sum(dim=3).to(torch.uint8)
+    return out
+
+
+def median_blur_u8(x, k: int):
+    """x [U, H, W] uint8 -> the exact k x k median [U, H, W] uint8
+    (cv2.medianBlur parity, BORDER_REPLICATE: every window holds k*k
+    clamped-coordinate samples, even when k exceeds H or W; the median is
+    the sample of 1-based rank (k*k+1)//2). Any odd k >= 1; k = 1 returns
+    ``x``."""
+    check_planes(x, "median_blur_u8")
+    _check_blur_k(k)
+    if k == 1:
+        return x
+    if x.device.type == "cpu":
+        return median_blur_u8_plain(x, k)
+    u, h, w = x.shape
+    if u >= 65536 or k >= 2**31:
+        raise ValueError(f"median_blur_u8: {u} units or k={k} beyond the kernel's grid")
+    out = torch.empty_like(x)
+    err = build.lib().tik_median_blur(
+        x.data_ptr(), out.data_ptr(), u, h, w, int(k),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("median_blur_u8", err)
+    LAUNCHES["median_blur"] += 1
     return out

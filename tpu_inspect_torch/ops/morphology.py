@@ -1,5 +1,5 @@
-"""Morphology: OpenCV structuring elements, stage tuples, and the plain
-stage chain (OpenCV clip-to-image borders), batched over [U, H, W].
+"""Morphology: OpenCV structuring elements, stage tuples, the plain stage
+chain (OpenCV clip-to-image borders), batched over [U, H, W]; kernel I.
 
 The SE tables are numpy copies of :func:`tpu_inspect.ops.morphology.ellipse_se`
 / ``_se_runs`` and :mod:`tpu_inspect.ops.morph_pallas`'s ``minkowski_sum`` /
@@ -8,6 +8,12 @@ The SE tables are numpy copies of :func:`tpu_inspect.ops.morphology.ellipse_se`
 contiguous column run ``[lo, hi]`` around the anchor. Out-of-image samples
 are the op's neutral (255 for erode, 0 for dilate), which is OpenCV's
 morphologyDefaultBorderValue.
+
+:func:`morph_chain` runs a stage chain: ``csrc/morph.cu`` (the port of
+:func:`tpu_inspect.ops.morph_pallas._morph_chain`) for CUDA tensors, one
+launch per stage, and :func:`apply_stages` for CPU tensors. Kernels A and
+C run the same programs inside their own CTAs (``csrc/planes.cuh``), and
+their plain versions call :func:`apply_stages` directly.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import functools
 
 import numpy as np
 import torch
+
+from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes
 
 
 def ellipse_se(k: int) -> np.ndarray:
@@ -173,3 +181,76 @@ def apply_stages(v: torch.Tensor, stages) -> torch.Tensor:
                 acc = s if acc is None else red(acc, s)
         v = acc
     return v
+
+
+_MORPH_TILE_W = 32  # csrc/morph.cu: kTileW
+_MORPH_SMEM_FAST = 64 * 1024
+_MORPH_SMEM_MAX = 232448  # a Hopper block's dynamic shared memory
+
+
+def _morph_smem(th: int, rx: int, ry: int) -> int:
+    """Shared bytes of kernel I's tile: the input tile plus halo and the
+    horizontal buffer (``csrc/morph.cu: launch``)."""
+    return (th + 2 * ry) * (2 * _MORPH_TILE_W + 2 * rx)
+
+
+def morph_tile_rows(rx: int, ry: int) -> int | None:
+    """Kernel I's output tile rows for a stage reaching rx columns and ry
+    rows: the most of 32, 16, 8 within 64 KB of shared memory, else 8 while
+    it fits a block at all, else None (the stage is refused)."""
+    for th in (32, 16, 8):
+        if _morph_smem(th, rx, ry) <= _MORPH_SMEM_FAST:
+            return th
+    return 8 if _morph_smem(8, rx, ry) <= _MORPH_SMEM_MAX else None
+
+
+@functools.lru_cache(maxsize=64)
+def _stage_layout(stages) -> tuple[tuple[int, bool, int, int], ...]:
+    """Per stage of :func:`stage_program`'s program: (word offset of its op,
+    erode, column reach rx, row reach ry)."""
+    out, p = [], 1
+    for op, runs in stages:
+        groups = group_runs(runs)
+        rx = max(max(-lo, hi, 0) for lo, hi, _ in groups)
+        ry = max(abs(dy) for _, _, dys in groups for dy in dys)
+        out.append((p, op == "erode", rx, ry))
+        p += 2 + sum(3 + len(dys) for _, _, dys in groups)
+    return tuple(out)
+
+
+def morph_chain(x: torch.Tensor, stages) -> torch.Tensor:
+    """Apply a stage chain to [U, H, W] uint8 planes; kernel I.
+
+    The result is :func:`apply_stages`'s (OpenCV borders: out-of-plane
+    samples are 255 for erode, 0 for dilate). On CUDA each stage is one
+    launch of ``csrc/morph.cu`` over ping-pong buffers; an empty chain
+    returns ``x``. A stage whose reach does not fit a block's shared memory
+    (above 223 pixels each way) raises ValueError."""
+    check_planes(x, "morph_chain")
+    stages = tuple(stages)
+    if x.device.type == "cpu":
+        return apply_stages(x, stages)
+    if not stages:
+        return x
+    u, h, w = x.shape
+    if u >= 65536:
+        raise ValueError(f"morph_chain: {u} units beyond the kernel's grid")
+    layout = _stage_layout(stages)
+    rows = [morph_tile_rows(rx, ry) for _, _, rx, ry in layout]
+    if None in rows:
+        raise ValueError("morph_chain: a stage's reach does not fit a block's shared memory")
+    prog = stage_program_tensor(stages, str(x.device))
+    n = len(stages)
+    bufs = (torch.empty_like(x), torch.empty_like(x) if n > 1 else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    src = x
+    for i, ((off, erode, rx, ry), th) in enumerate(zip(layout, rows)):
+        dst = bufs[(n - 1 - i) % 2]  # the last stage writes bufs[0]
+        err = build.lib().tik_morph_stage(
+            src.data_ptr(), dst.data_ptr(), prog.data_ptr() + 4 * off, u, h, w,
+            int(erode), rx, ry, th, stream,
+        )
+        build.check("morph_chain", err)
+        LAUNCHES["morph"] += 1
+        src = dst
+    return src
