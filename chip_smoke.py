@@ -8,7 +8,7 @@ Run from the repository root with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build the ten CUDA kernels (A-J) from ``tpu_inspect_torch/csrc`` (one
+2. build the twelve CUDA kernels (A-L) from ``tpu_inspect_torch/csrc`` (one
    nvcc per source, all started together, sm_90a);
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
    bit-exact (tolerance 0): the standard workload's own stage inputs
@@ -23,8 +23,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and at k = 47 on the whole plane; kernel I's close/open, open and 13x13
    erode forms on the 48 units and on the whole plane; kernel J on the 48
    units' eroded seg masks with an empty and a full unit, and on the one
-   unit of the erosion preview; seeded random planes of odd sizes with an
-   empty and a full unit, and a long 1-px serpentine;
+   unit of the erosion preview; kernel K (the chained seg tail, zone and
+   ROI tail) on the 48 units with and without the zone at erode_px 0, 6 and
+   12; kernel L (the median probe) in its baseline mode at each tile shape;
+   seeded random planes of odd sizes with an empty and a full unit, and a
+   long 1-px serpentine;
 4. every path on the card, each driven with the launch counts set to 0 just
    before it and read just after, and held field by field against the same
    engine on ``device="cpu"``: ``engine.inspect_image`` for the four
@@ -45,14 +48,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    127.0.0.1 driven over HTTP with ``median_k = 47`` (state, indexing,
    segmentation, inspection, a defect test, a selection and the canvas PNG
    with the selected unit's outline), each held against phase 4's CPU
-   results for the same image and parameters;
+   results for the same image and parameters; the chained path
+   (``engine._ENABLE_CHAIN``: kernel K in place of A's two launches) on the
+   reference capture against the split path and the CPU run; the capture
+   stream (``streaming.stream_inspect``) over six 4096x3000 frames with the
+   reference's anchors and again without anchors on the chained path, every
+   frame held against ``inspect_image`` on the card; ``stream_inspect_paths``
+   over PNG files and the CLI as subprocesses (gridgen, inspect, stream,
+   doctor, profile), where the host can decode files (the port's
+   libpng/libtiff loader, or cv2); the median-probe tool (kernel L's sweep);
 5. times on the card: each kernel vs its plain version (CUDA events, median
    of repeated runs at the paths' shapes, the whole planes included) beside
    its bound (the bytes the call must move at 3.35 TB/s), each combo's
    ``inspect_image`` steady-state wall ms/image (host image in, host
    results out), the whole-image segmentation and seg+defect wall ms, the
-   session's and the UI server's calls, and a ``torch.profiler`` breakdown
-   of each combo.
+   session's and the UI server's calls, kernel K against kernel A's two
+   calls, the chained ``inspect_image`` against the split one, the stream's
+   device and wall ms per frame at prefetch 1 and 2 beside its modeled
+   bound (frame bytes over the measured pinned H2D rate, plus the device
+   time), the native decode per frame, the median probe's table, and a
+   ``torch.profiler`` breakdown (:mod:`tpu_inspect_torch.utils.profile`) of
+   each combo, the chain and the stream.
 
 The second-to-last lines are the card line and one JSON object with the
 per-kernel results; the last line is the JSON status object. Without CUDA,
@@ -63,10 +79,13 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -83,12 +102,16 @@ DIAG_UNITS = 4
 # two rows, the first 16 units, as bench.py's combo gate does
 CPU_ROWS_CANNY = 2
 PROFILE_REPS = 5
+# the timed stream's profile: one pass over its frames. Each frame's host
+# Otsu scan is about 5000 CPU ops, and the profiler's processing of the
+# events of five passes took minutes of the script's time
+PROFILE_REPS_STREAM = 1
 REPS_WHOLE = 10
 # the whole-image path each new kernel was ported for
 WHOLE_HOME = "whole inspect_units otsu/threshold reference"
 # every whole-image combo runs at full size on the card; for the Canny
 # combos the CPU comparison takes this centre crop (above the route's gate):
-# the crop's plain run already takes 32-35 s on an 8-core H100 host, and the
+# the crop's plain run already takes 30-35 s on an 8-core H100 host, and the
 # full plane, 3.9x its area, would take the script past half its time limit
 WHOLE_CROP = (1536, 2048)
 CROPPED_DEFECT_METHODS = {"canny"}
@@ -97,6 +120,18 @@ BIG_K = 47
 BIG_K_HOME = f"otsu/threshold median_k={BIG_K} reference"
 SESSION_HOME = "session erosion_outline"
 REPS_HOST = 5
+# kernel K's path: the reference capture with the chain flag on
+CHAIN_HOME = "chained otsu/threshold reference"
+# the capture stream: (seed, shift) of each 4096x3000 frame; the first two
+# are the standard workload's reference and (7, -4) captures
+STREAM_FRAMES = ((0, (0, 0)), (1, (7, -4)), (2, (3, 5)), (3, (-6, 2)), (4, (0, -3)),
+                 (5, (5, 1)))
+STREAM_HOME = "stream anchored"
+STREAM_CHAIN_HOME = "stream chained, no anchors"
+STREAM_REPEATS = 3  # the timed stream: the frames this many times over
+# kernel L's path: the median-probe tool's sweep
+PROBE_HOME = "median probe tool"
+PROBE_FORM = "baseline 32x8"  # kernel B's own tile: L's top-level numbers
 
 
 def fail(msg: str) -> None:
@@ -106,6 +141,15 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def mark(what: str) -> None:
+    """One line with the seconds since the script started, at each phase's
+    start: where the run's time goes, against its 1200 s limit."""
+    say(f"{what} at {time.perf_counter() - T_START:.1f} s")
 
 
 def card_line() -> str:
@@ -253,40 +297,26 @@ def wall_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profile_combo(label: str, run, card: str) -> None:
-    """Device time per kernel (and copy) over PROFILE_REPS calls of ``run``
-    under torch.profiler, per call, beside the host wall of the same calls;
-    the device's idle share is 1 - busy / wall (the profiler adds host
-    cost, so the share is an upper bound)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def profile_combo(label: str, run, card: str, per: int = 1, unit: str = "image",
+                  reps: int = PROFILE_REPS):
+    """Device time per kernel (and copy) over ``reps`` calls of ``run``
+    under torch.profiler (:func:`tpu_inspect_torch.utils.profile.profile_device`),
+    per call divided by ``per`` (the frames a call streams), beside the host
+    wall of the same calls; the device's idle share is 1 - busy / wall (the
+    profiler adds host cost, so the share is an upper bound). Returns the
+    profile."""
+    from tpu_inspect_torch.utils.profile import profile_device
 
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_REPS):
-            run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_REPS
-    rows = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels, memcpy, memset): an aten op's row
-        # repeats the device time of the kernels it launched
-        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key.startswith("Activity"):
-            continue
-        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us / PROFILE_REPS / 1e3, ev.count / PROFILE_REPS, ev.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    if not rows:
+    prof = profile_device(run, reps)
+    if not prof.rows:
         say(f"phase 5: profile {label}: the profiler recorded no device time")
-        return
-    say(f"phase 5: profile {label}: device busy {busy:.4f} ms of {wall:.4f} ms wall per "
-        f"image under the profiler (idle share {1 - busy / wall:.3f}) on {card}")
-    for ms, count, key in rows[:12]:
-        say(f"phase 5:   {ms:9.4f} ms  x{count:g}  {key[:90]}")
+        return prof
+    say(f"phase 5: profile {label}: device busy {prof.busy_ms / per:.4f} ms of "
+        f"{prof.wall_ms / per:.4f} ms wall per {unit} under the profiler (idle share "
+        f"{prof.idle_share:.3f}) on {card}")
+    for key, ms, count in prof.rows[:12]:
+        say(f"phase 5:   {ms / per:9.4f} ms  x{count / per:g}  {key[:90]}")
+    return prof
 
 
 def main() -> int:
@@ -302,7 +332,7 @@ def main() -> int:
 
     import numpy as np
 
-    from tpu_inspect_torch import engine, geometry, render
+    from tpu_inspect_torch import engine, geometry, native, render
     from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
     from tpu_inspect_torch.imageio import gather_crops
     from tpu_inspect_torch.kernels import LAUNCHES, build, reset_launches
@@ -318,7 +348,13 @@ def main() -> int:
         largest_component_sums,
     )
     from tpu_inspect_torch.ops.flood import propagate, propagate_plain
-    from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_plain, tail_mask
+    from tpu_inspect_torch.ops.fused import (
+        seg_roi_tail,
+        seg_roi_tail_plain,
+        seg_tail,
+        seg_tail_plain,
+        tail_mask,
+    )
     from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
     from tpu_inspect_torch.ops.median import (
         median_blur_u8,
@@ -338,7 +374,11 @@ def main() -> int:
         otsu_threshold,
         threshold_binary_inv,
     )
+    from tpu_inspect_torch.persistence import load_grid
+    from tpu_inspect_torch.png import encode_png
     from tpu_inspect_torch.session import InspectionSession
+    from tpu_inspect_torch.streaming import stream_inspect, stream_inspect_paths
+    from tpu_inspect_torch.tools import median_probe
     from tpu_inspect_torch.ui import UIServer
     from tpu_inspect_torch.synthetic import (
         make_mold_image,
@@ -370,6 +410,7 @@ def main() -> int:
             say(f"  ptxas: {line.strip()}")
 
     # ---- phase 3: kernels vs plain versions, bit-exact ------------------
+    mark("phase 3 starts")
     seg = SegmentationParams().validated()
     seg_ad = SegmentationParams(method="adaptive").validated()
     dparams = DefectParams().validated()
@@ -449,6 +490,11 @@ def main() -> int:
     j_plane = tail_mask(seg_masks, erode)
     j_plane[0], j_plane[1] = False, True
     j_one = tail_mask(seg_masks[u0 : u0 + 1], erode).contiguous()
+    # kernel K's zone: the standard workload's exclusions rasterized once at
+    # zero shift (the reference capture's), shared by every unit
+    z0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    zone = engine.exclusion_zone((h, w), *engine.pack_exclusions(work["exclusions"]), z0, z0)[0]
+    roi_rows_b = roi_rows_bytes(crops, k, row_lo, row_hi)
 
     # per kernel: (label, call, inputs read) at the paths' shapes; "path"
     # cases are what one inspect_image (or one diagnostic pass) runs, the
@@ -478,6 +524,15 @@ def main() -> int:
         ],
         "label_stats": [
             ("erosion preview unit", lambda f: f(j_one), (j_one,)),
+        ],
+        "seg_roi_tail": [
+            ("chained, zone, erode 6", lambda f: f(x, co, erode, thr, zone), (x, thr, zone)),
+        ],
+        "median_probe": [
+            (f"baseline {tw}x{th}",
+             lambda f, t=(tw, th): f(crops, k, t_res, row_lo, row_hi, "baseline", t),
+             (roi_rows_b, row_lo, row_hi))
+            for tw, th in median_probe.TILES
         ],
     }
     other_cases = {
@@ -513,6 +568,12 @@ def main() -> int:
         ],
         "label_stats": [
             ("eroded seg masks 48u, empty + full", lambda f: f(j_plane), (j_plane,)),
+        ],
+        "seg_roi_tail": [
+            ("no zone, erode 6", lambda f: f(x, co, erode, thr), (x, thr)),
+            ("zone, erode 0", lambda f: f(x, co, (), thr, zone), (x, thr, zone)),
+            ("zone, erode 12", lambda f: f(x, co, rect_erode_stages(12), thr, zone),
+             (x, thr, zone)),
         ],
     }
     # the whole-image route (one inspect_units call on 1x3000x4096): B, D
@@ -551,6 +612,13 @@ def main() -> int:
             ("whole open 3x3", lambda f: f(cand_roi_w, open3), (cand_roi_w,)),
         ],
     }
+    def probe_plain(x_, k_, thr_, lo=None, hi=None, mode="baseline", tile=None):
+        """Kernel L's plain version: kernel B's (its baseline mode only; the
+        ablations are timed, never compared)."""
+        if mode != "baseline":
+            fail(f"median_probe: no plain version of the {mode} ablation")
+        return median_residual_mask_plain(x_, k_, thr_, lo, hi)
+
     kernel_fns = {
         "seg_tail": (seg_tail, seg_tail_plain),
         "median_residual": (median_residual_mask, median_residual_mask_plain),
@@ -562,6 +630,8 @@ def main() -> int:
         "median_blur": (median_blur_u8, median_blur_u8_plain),
         "morph": (morph_chain, apply_stages),
         "label_stats": (largest_component_sums, largest_component),
+        "seg_roi_tail": (seg_roi_tail, seg_roi_tail_plain),
+        "median_probe": (median_probe.probe, probe_plain),
     }
 
     def compare(name, label, got, ref):
@@ -603,6 +673,11 @@ def main() -> int:
         hi_r = torch.from_numpy(rng.randint(hh // 2, hh + 1, u).astype(np.int32)).to(dev)
         mx_r = torch.from_numpy(rng.randint(0, 2 * hh * ww, u).astype(np.int32)).to(dev)
         full_b = (full > 0).contiguous()
+        gray_ef = gray.clone()
+        gray_ef[0] = 255  # nothing at or below the threshold: an empty unit
+        gray_ef[-1] = 0  # everything: a full unit
+        zone_r = torch.from_numpy(
+            (np.random.RandomState(hh * ww).rand(hh, ww) > 0.8).astype(np.uint8)).to(dev)
         lab_r = label_components(full_b)
         regions_r = engine._fill_regions(full_b)
         cases = [
@@ -633,6 +708,14 @@ def main() -> int:
             ("morph", "open 3", lambda f: f(full, open3)),
             ("label_stats", "random", lambda f: f(full_b)),
             ("label_stats", "inverted", lambda f: f((~full_b).contiguous())),
+            ("seg_roi_tail", "zone, erode 6",
+             lambda f: f(gray_ef, close_open_stages(3), rect_erode_stages(6), thr_r, zone_r)),
+            ("seg_roi_tail", "no zone, erode 12",
+             lambda f: f(gray_ef, close_open_stages(3), rect_erode_stages(12), thr_r)),
+            ("median_probe", "baseline 64x8",
+             lambda f: f(gray, 9, 24, lo_r, hi_r, "baseline", (64, 8))),
+            ("median_probe", "baseline 16x16, every row",
+             lambda f: f(gray, 21, 0, None, None, "baseline", (16, 16))),
         ]
         for name, label, call in cases:
             fast, plain = kernel_fns[name]
@@ -670,6 +753,7 @@ def main() -> int:
         f"pixel) and label")
 
     # ---- phase 4: every path on the card vs the CPU run -----------------
+    mark("phase 4 starts")
     grid = work["grid"]
     shifted_img = make_mold_image(grid, (3000, 4096), seed=1, shift=(7, -4))
     expect = {
@@ -753,6 +837,7 @@ def main() -> int:
             f"{totals} in all (last: {got})")
 
     # the whole-image route: the standard image as one 4096x3000 unit
+    mark("phase 4: the whole-image route starts")
     whole_np = work["image"][None]
     whole_grid = GridParams(base_unit=(0, 0, 4096, 3000))
     cy, cx = (3000 - WHOLE_CROP[0]) // 2, (4096 - WHOLE_CROP[1]) // 2
@@ -782,6 +867,7 @@ def main() -> int:
     seg_kernels = ("propagate", "label", "cc_stats")
     def_kernels = {"threshold": seg_kernels + ("median_residual", "blob_select"),
                    "canny": seg_kernels + ("blob_select",)}
+    # each entry point on the card is held against its own CPU run at full size
     whole_runs = [
         ("whole inspect_image otsu/threshold",
          lambda d: engine.inspect_image(work["image"], whole_grid, sp0, dp0, exclusions=excl,
@@ -879,6 +965,7 @@ def main() -> int:
         f"on the CPU): NG {int(got[1].verdicts.sum())}/48, defect px "
         f"{int(got[1].areas.sum())}, launches {launches}")
 
+    mark("phase 4: the session and the UI server start")
     # the interactive session on the card: the reference, then the (7, -4)
     # capture, each held against phase 4's CPU run of the same image
     cpu_ref, cpu_shift = (cpu_runs[f"otsu/threshold {c}"] for c in ("reference", "shifted"))
@@ -999,7 +1086,161 @@ def main() -> int:
         f"({r['verdict']}, {r['area']} px), canvas {got_px.shape} with the outline, "
         f"launches {ui_launches}")
 
+    mark("phase 4: the chained path, the stream, the CLI and the probe start")
+    # the chained path (kernel K in place of kernel A's two launches) on the
+    # reference capture, against the split path on the card and the CPU run
+    cpu_ref = cpu_runs["otsu/threshold reference"]
+    engine._ENABLE_CHAIN = True
+    reset_launches()
+    chained = engine.inspect_image(work["image"], grid, seg, dparams, exclusions=excl,
+                                   device="cuda")
+    launches = dict(LAUNCHES)
+    engine._ENABLE_CHAIN = False
+    launches_by_path[CHAIN_HOME] = launches
+    if (launches["seg_roi_tail"] != 1 or launches["seg_tail"] or launches["median_residual"] != 1
+            or launches["blob_filter"] != 1):
+        fail(f"{CHAIN_HOME}: not the chained path, launches {launches}")
+    split = engine.inspect_image(work["image"], grid, seg, dparams, exclusions=excl,
+                                 device="cuda")
+    held(f"{CHAIN_HOME} vs the split path", chained, split)
+    held(f"{CHAIN_HOME} vs device=cpu", chained, cpu_ref)
+    say(f"phase 4: {CHAIN_HOME} 48 units on the card equal to the split path on the card and "
+        f"to device=cpu: NG {int(chained[1].verdicts.sum())}/48, launches {launches}")
+
+    # the capture stream: six 4096x3000 frames, first with the reference's
+    # anchors, then without anchors (every frame a reference capture) on the
+    # chained path; every frame held against inspect_image on the card
+    frames = [work["image"], shifted_img] + [
+        make_mold_image(grid, (3000, 4096), seed=sd, shift=sh) for sd, sh in STREAM_FRAMES[2:]]
+    anchors = cpu_ref[0].centroid_dict()
+    frame_refs = {
+        anchored: [engine.inspect_image(
+            f, grid, seg, dparams, exclusions=excl, ref_centroids=anchors if anchored else None,
+            is_reference=not anchored, device="cuda") for f in frames]
+        for anchored in (True, False)
+    }
+
+    def held_stream(path, results, refs):
+        """Fail unless each streamed frame equals inspect_image's results on
+        the card: verdicts, areas, found flags, and the masks if fetched."""
+        if [r.index for r in results] != list(range(len(refs))):
+            fail(f"{path}: frames {[r.index for r in results]} out of order")
+        for r, (s_ref, i_ref) in zip(results, refs):
+            for name, a, b in (("verdicts", r.verdicts, i_ref.verdicts),
+                               ("areas", r.areas, i_ref.areas), ("valid", r.valid, i_ref.valid),
+                               ("seg_masks", r.seg_masks, s_ref.masks),
+                               ("defect_masks", r.defect_masks, i_ref.defect_masks)):
+                if a is not None and (a.dtype != b.dtype or not np.array_equal(a, b)):
+                    fail(f"{path}: frame {r.index} {name} differs from inspect_image on the card")
+            if r.ng_count != int(i_ref.verdicts.sum()):
+                fail(f"{path}: frame {r.index} ng_count {r.ng_count}")
+
+    n_fr = len(frames)
+    for path, anchored, prefetch in ((STREAM_HOME, True, 1), (STREAM_CHAIN_HOME, False, 2)):
+        engine._ENABLE_CHAIN = not anchored
+        reset_launches()
+        res = list(stream_inspect(frames, grid, seg, dparams, exclusions=excl,
+                                  ref_centroids=anchors if anchored else None,
+                                  prefetch=prefetch, fetch_masks=True))
+        launches = dict(LAUNCHES)
+        engine._ENABLE_CHAIN = False
+        launches_by_path[path] = launches
+        tails = {"seg_tail": 2 * n_fr, "seg_roi_tail": 0} if anchored else {
+            "seg_tail": 0, "seg_roi_tail": n_fr}
+        if any(launches[n] != c for n, c in {**tails, "median_residual": n_fr,
+                                            "blob_filter": n_fr}.items()):
+            fail(f"{path}: launches {launches} for {n_fr} frames")
+        held_stream(path, res, frame_refs[anchored])
+        say(f"phase 4: {path}: {n_fr} frames 3000x4096 at prefetch {prefetch}, each equal to "
+            f"inspect_image on the card (masks included): NG {[r.ng_count for r in res]}, "
+            f"launches {launches}")
+
+    # files: stream_inspect_paths and the CLI read PNGs through the port's
+    # native libpng/libtiff loader, or through cv2 where the host has no
+    # libpng/libtiff to build it against; a host with neither reads no file
+    decoder = ("native libpng/libtiff" if native.get_lib() is not None
+               else "cv2" if importlib.util.find_spec("cv2") is not None else None)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    paths = []
+    if decoder:
+        for i, f in enumerate(frames):
+            paths.append(str(Path(tmp.name) / f"frame_{i}.png"))
+            Path(paths[-1]).write_bytes(encode_png(f))
+        reset_launches()
+        res = list(stream_inspect_paths(paths, grid, seg, dparams, exclusions=excl,
+                                        ref_centroids=anchors))
+        launches_by_path["stream_inspect_paths anchored"] = dict(LAUNCHES)
+        held_stream("stream_inspect_paths", res, frame_refs[True])
+        say(f"phase 4: stream_inspect_paths: {n_fr} PNG frames from the port's encoder, "
+            f"decoded by {decoder}, equal to the in-memory stream")
+    else:
+        say("phase 4: stream_inspect_paths and the CLI's file commands not run: this host "
+            "has neither libpng/libtiff nor cv2 to decode files (tests/test_torch_streaming.py "
+            "and tests/test_torch_cli.py hold them on the CPU)")
+
+    def run_cli(*args, env=None):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "tpu_inspect_torch.cli", *args], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600,
+                           env={**os.environ, **(env or {})})
+        if r.returncode != 0:
+            fail(f"cli {args[0]} exited {r.returncode}: {r.stderr[-3000:]}")
+        cli_s[args[0]] = time.perf_counter() - t0
+        return r.stdout.strip().splitlines()
+
+    def report_of(insp):
+        """The CLI's per-image report fields from an engine result."""
+        return {"ng_units": np.flatnonzero(insp.verdicts).tolist(),
+                "ng_count": int(insp.verdicts.sum()), "unit_count": len(insp.verdicts),
+                "areas": {str(i): int(a) for i, a in enumerate(insp.areas) if insp.valid[i]}}
+
+    cli_s = {}
+    grid_json = str(Path(tmp.name) / "grid.json")
+    run_cli("gridgen", "--base", "251,232,316,315", "--units", "4x6", "--blocks", "2x1",
+            "--unit-space", "133,136", "--block-space", "252,0", "--image-size", "4096x3000",
+            "--out", grid_json)
+    if geometry.grid_boxes(load_grid(grid_json).grid_params) != geometry.grid_boxes(grid):
+        fail("cli gridgen: the grid file's boxes differ from the sample grid's")
+    if decoder:
+        # gridgen writes no exclusions: the engine runs below take none
+        report = json.loads(run_cli("inspect", "--grid", grid_json, "--image", *paths[:2])[-1])
+        s0, i0 = engine.inspect_image(frames[0], grid, seg, dparams, device="cuda")
+        _, i1 = engine.inspect_image(frames[1], grid, seg, dparams,
+                                     ref_centroids=s0.centroid_dict(), is_reference=False,
+                                     device="cuda")
+        if report != {paths[0]: report_of(i0), paths[1]: report_of(i1)}:
+            fail(f"cli inspect: its report differs from the engine's: {report}")
+        lines = [json.loads(x) for x in run_cli("stream", "--grid", grid_json, *paths,
+                                                env={"TPU_INSPECT_ENABLE_CHAIN": "1"})]
+        want = []
+        for i, f in enumerate(frames):
+            rep_i = report_of(engine.inspect_image(f, grid, seg, dparams, device="cuda")[1])
+            want.append({"frame": paths[i], "index": i, "ng_count": rep_i["ng_count"],
+                         "unit_count": rep_i["unit_count"], "ng_units": rep_i["ng_units"]})
+        if lines != want:
+            fail(f"cli stream (chained): its lines differ from the engine's: {lines}")
+        say(f"phase 4: cli inspect (2 images) and stream ({n_fr} frames, the chain on) on the "
+            f"card equal to the engine's results: NG {[x['ng_count'] for x in lines]}")
+    doctor = run_cli("doctor")
+    if not any(x.startswith("devices: 1 x cuda") for x in doctor) or not any(
+            x.startswith("kernel library: libtik_") and "built;" in x for x in doctor):
+        fail(f"cli doctor: {doctor}")
+    prof_out = run_cli("profile", "--iters", "3")
+    if not prof_out[0].startswith("device time:") or not any("seg_tail" in x for x in prof_out):
+        fail(f"cli profile: {prof_out}")
+    for line in doctor + prof_out[:6]:
+        say(f"phase 4: cli | {line}")
+    say(f"phase 4: cli subprocess walls (s) {json.dumps(cli_s)}")
+
+    # kernel L's path: the median-probe tool's sweep (modes x tile shapes)
+    reset_launches()
+    probe_table = median_probe.main()
+    launches_by_path[PROBE_HOME] = dict(LAUNCHES)
+    if LAUNCHES["median_probe"] < len(median_probe.MODES) * len(median_probe.TILES):
+        fail(f"{PROBE_HOME}: launches {dict(LAUNCHES)}")
+
     # ---- phase 5: times ----------------------------------------------------
+    mark("phase 5 starts")
     def timed(name, lst):
         fast, plain = kernel_fns[name]
         rows = []
@@ -1015,6 +1256,7 @@ def main() -> int:
     times = {name: tuple(timed(name, cases.get(name, []))
                          for cases in (path_cases, other_cases, whole_cases))
              for name in kernel_fns}
+    mark("phase 5: the kernels' times done; end-to-end times start")
     otsu_ms = cuda_ms(lambda: otsu_threshold(x), REPS_KERNEL)
     say(f"phase 5: otsu_threshold (host f64 scan) {otsu_ms:.4f} ms on {card}")
     e2e = {}
@@ -1101,6 +1343,86 @@ def main() -> int:
         say(f"phase 5: {label} {e2e[label]:.4f} ms (median of {REPS_HOST}, wall) on {card}")
     srv.stop()
 
+    mark("phase 5: the chain and the stream start")
+    # kernel K against kernel A's two calls with the zone between them, in
+    # turns (K, A, A, K) on the same inputs
+    def split_tails():
+        m, _ = seg_tail(x, co, fill=True, thr=thr)
+        return seg_tail(torch.where(zone, torch.zeros_like(m), m), erode, out_largest=True)
+
+    tails_ms = {"K": [], "A x2 + zone": []}
+    for who in ("K", "A x2 + zone", "A x2 + zone", "K"):
+        tails_ms[who].append(cuda_ms(
+            (lambda: seg_roi_tail(x, co, erode, thr, zone)) if who == "K" else split_tails,
+            REPS_KERNEL))
+    say(f"phase 5: kernel K {tails_ms['K']} ms vs kernel A's two calls + zone "
+        f"{tails_ms['A x2 + zone']} ms (turns K, A, A, K) on {card}")
+    # the chained inspect_image against the split one, in turns
+    chain_walls = {"split": [], "chained": []}
+    img_np = work["image"]
+    for mode in ("split", "chained", "chained", "split"):
+        engine._ENABLE_CHAIN = mode == "chained"
+        chain_walls[mode].append(wall_ms(lambda: engine.inspect_image(
+            img_np, grid, seg, dparams, exclusions=excl), REPS_E2E // 2))
+    e2e["inspect_image otsu/threshold chained"] = statistics.median(chain_walls["chained"])
+    say(f"phase 5: inspect_image otsu/threshold split {chain_walls['split']} vs chained "
+        f"{chain_walls['chained']} ms/image (medians of {REPS_E2E // 2}, turns S, C, C, S, "
+        f"wall) on {card}")
+    engine._ENABLE_CHAIN = True
+    profile_combo("chained otsu/threshold", lambda: engine.inspect_image(
+        img_np, grid, seg, dparams, exclusions=excl), card)
+    engine._ENABLE_CHAIN = False
+
+    # the stream: wall and device ms per frame, beside the modeled bound
+    # (a frame's bytes over the measured pinned H2D rate, plus its device time)
+    pinned = torch.from_numpy(frames[0].copy()).pin_memory()
+    h2d_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), REPS_KERNEL)
+    h2d_rate = frames[0].nbytes / (h2d_ms * 1e-3)
+    say(f"phase 5: pinned H2D of one 4096x3000 frame {h2d_ms:.4f} ms "
+        f"({h2d_rate / 1e9:.2f} GB/s) on {card}")
+    timed_frames = frames * STREAM_REPEATS
+    n_t = len(timed_frames)
+    for label, anchored, prefetch in (("anchored", True, 1), ("anchored", True, 2),
+                                      ("chained, no anchors", False, 2)):
+        engine._ENABLE_CHAIN = not anchored
+
+        def run(anchored=anchored, prefetch=prefetch):
+            return [r.ng_count for r in stream_inspect(
+                timed_frames, grid, seg, dparams, exclusions=excl,
+                ref_centroids=anchors if anchored else None, prefetch=prefetch)]
+
+        wall = wall_ms(run, REPS_HOST) / n_t
+        prof = profile_combo(f"stream {label}, prefetch {prefetch}", run, card, per=n_t,
+                             unit="frame", reps=PROFILE_REPS_STREAM)
+        engine._ENABLE_CHAIN = False
+        device = prof.busy_ms / n_t
+        bound = frames[0].nbytes / h2d_rate * 1e3 + device
+        key = f"{label}, prefetch {prefetch}"
+        e2e[f"stream_4096x3000_wall_ms_per_frame {key}"] = wall
+        e2e[f"stream_4096x3000_device_ms_per_frame {key}"] = device
+        say(f"phase 5: stream {key}: wall {wall:.4f} ms/frame (median of {REPS_HOST} runs of "
+            f"{n_t} frames), device {device:.4f} ms/frame, modeled bound {bound:.4f} ms/frame "
+            f"(H2D {frames[0].nbytes / h2d_rate * 1e3:.4f} + device) on {card}")
+    if native.get_lib() is not None:
+        dec = []
+        for p in paths:
+            t0 = time.perf_counter()
+            img = native.decode(p)
+            dec.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(img, frames[len(dec) - 1]):
+                fail(f"native decode of {p} differs from the frame written")
+        e2e["native_decode_ms_per_frame"] = statistics.median(dec)
+        say(f"phase 5: native PNG decode {statistics.median(dec):.4f} ms/frame "
+            f"(median of {len(dec)}, host wall)")
+    else:
+        say("phase 5: native decode not measured: this host has no libpng/libtiff to build "
+            f"the port's loader against (files decoded by {decoder})")
+    say(f"phase 5: median probe (kernel L) ms per launch by mode and tile: "
+        f"{json.dumps({f'{m} {t[0]}x{t[1]}': v for (m, t), v in probe_table.items()})} "
+        f"on {card}")
+    tmp.cleanup()
+
+    mark("phase 5 ends")
     sources = {
         "seg_tail": ("tpu_inspect_torch/csrc/seg_tail.cu", "tpu_inspect/ops/fused_pallas.py:145"),
         "median_residual": ("tpu_inspect_torch/csrc/median_residual.cu",
@@ -1117,6 +1439,9 @@ def main() -> int:
         "morph": ("tpu_inspect_torch/csrc/morph.cu", "tpu_inspect/ops/morph_pallas.py:138"),
         "label_stats": ("tpu_inspect_torch/csrc/label_stats.cu",
                         "tpu_inspect/ops/cc_pallas.py:421"),
+        "seg_roi_tail": ("tpu_inspect_torch/csrc/seg_roi_tail.cu",
+                         "tpu_inspect/ops/fused_pallas.py:1002"),
+        "median_probe": ("tpu_inspect_torch/csrc/median_probe.cu", "tools/median_probe.py:142"),
     }
     # further TPU kernels whose function a kernel serves (whole-image
     # counterparts of tiled TPU kernels, and same-function resident ones)
@@ -1133,11 +1458,12 @@ def main() -> int:
         "blob_filter": "otsu/threshold reference", "propagate": "otsu/canny reference",
         "label": "defect_intermediates/canny", "cc_stats": WHOLE_HOME,
         "blob_select": WHOLE_HOME, "median_blur": BIG_K_HOME, "morph": WHOLE_HOME,
-        "label_stats": SESSION_HOME,
+        "label_stats": SESSION_HOME, "seg_roi_tail": CHAIN_HOME, "median_probe": PROBE_HOME,
     }
     # kernel I's top-level numbers are its 13x13 erode form on the whole
-    # plane, the form with a library yardstick (one of its launches there)
-    home_form = {"morph": "whole erode 13x13"}
+    # plane, the form with a library yardstick (one of its launches there);
+    # kernel L's its baseline at kernel B's tile
+    home_form = {"morph": "whole erode 13x13", "median_probe": PROBE_FORM}
 
     def summed(rows, path):
         bound = sum(r["bound_ms"] for r in rows)
@@ -1163,7 +1489,10 @@ def main() -> int:
         }
         if name in home_form:
             entry["form"] = home_form[name]
+        if name == "morph":
             entry["library_ms_48_units"] = lib_ms["erode 13x13, 48 units"]
+        if name == "median_probe":
+            entry["sweep_ms"] = {f"{m} {t[0]}x{t[1]}": v for (m, t), v in probe_table.items()}
         if whole_rows and home_rows is not whole_rows:
             entry["whole"] = {**summed(whole_rows, WHOLE_HOME),
                               "launches": launches_by_path[WHOLE_HOME][name]}

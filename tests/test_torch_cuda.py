@@ -28,7 +28,7 @@ from tpu_inspect_torch.ops.cc import (
     largest_component_sums,
 )
 from tpu_inspect_torch.ops.flood import propagate, propagate_plain
-from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_plain
+from tpu_inspect_torch.ops.fused import seg_roi_tail, seg_roi_tail_plain, seg_tail, seg_tail_plain
 from tpu_inspect_torch.ops.median import (
     median_blur_u8,
     median_blur_u8_plain,
@@ -44,7 +44,9 @@ from tpu_inspect_torch.ops.morphology import (
 )
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
+from tpu_inspect_torch.streaming import stream_inspect
 from tpu_inspect_torch.synthetic import make_mold_image, serpentine_plane, standard_workload
+from tpu_inspect_torch.tools.median_probe import MODES, TILES, probe
 
 pytestmark = pytest.mark.cuda
 
@@ -311,3 +313,75 @@ def test_largest_component_sums_matches_plain(cuda, shape):
     _assert_equal(got, component_stats(label_components(fg), fg))
     if shape[0] > 1:
         assert got[0][2, 3, 0] and not got[0][2, 2, 28]
+
+
+@pytest.mark.parametrize("erode", [0, 6, 12])
+def test_seg_roi_tail_matches_plain(cuda, erode):
+    """Kernel K against its plain version, with and without the zone; an
+    empty and a full unit, an odd unit count, erode_px beyond the TPU
+    kernel's pairing gap."""
+    rng = np.random.RandomState(16)
+    shape = (3, 37, 53)
+    gray = torch.from_numpy(rng.randint(0, 256, shape, dtype=np.uint8)).to(cuda)
+    gray[0] = 255  # nothing <= thr: an empty unit
+    gray[1] = 0  # everything <= thr: a full unit
+    thr = torch.from_numpy(rng.randint(60, 200, shape[0]).astype(np.int32)).to(cuda)
+    zone = torch.from_numpy((rng.rand(37, 53) > 0.8).astype(np.uint8)).to(cuda)
+    stages, roi_stages = close_open_stages(3), rect_erode_stages(erode)
+    for z in (None, zone, zone > 0):
+        reset_launches()
+        got = seg_roi_tail(gray, stages, roi_stages, thr, z)
+        assert LAUNCHES["seg_roi_tail"] == 1
+        _assert_equal(got, seg_roi_tail_plain(gray, stages, roi_stages, thr, z))
+
+
+def test_inspect_image_chained_cuda_matches_cpu(cuda, monkeypatch):
+    """The chained path (kernel K in place of kernel A's two launches) on
+    the card equals the split path and the CPU run."""
+    grid = tcfg.GridParams(base_unit=(4, 6, 48, 44), units_x=2, units_y=2)
+    img = make_mold_image(grid, (110, 120), seed=3, defect_rate=1.0)
+    excl = [{"shape": "rect", "x": 5, "y": 6, "w": 10, "h": 8}]
+    seg, dp = tcfg.SegmentationParams(), tcfg.DefectParams(min_area=3)
+    split = teng.inspect_image(img, grid, seg, dp, exclusions=excl, device=cuda)
+    monkeypatch.setattr(teng, "_ENABLE_CHAIN", True)
+    reset_launches()
+    chained = teng.inspect_image(img, grid, seg, dp, exclusions=excl, device=cuda)
+    assert LAUNCHES["seg_roi_tail"] == 1 and LAUNCHES["seg_tail"] == 0
+    cpu = teng.inspect_image(img, grid, seg, dp, exclusions=excl, device="cpu")
+    for ref in (split, cpu):
+        for got_r, ref_r in zip(chained, ref):
+            for f in vars(got_r):
+                a, b = getattr(got_r, f), getattr(ref_r, f)
+                assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+@pytest.mark.parametrize("prefetch", [1, 2])
+def test_stream_cuda_matches_cpu(cuda, prefetch):
+    """Pinned, reused upload buffers: every frame equals the CPU stream."""
+    grid = tcfg.GridParams(base_unit=(4, 6, 48, 44), units_x=2, units_y=2)
+    frames = [make_mold_image(grid, (110, 120), seed=s, defect_rate=1.0) for s in range(5)]
+    kw = dict(defect=tcfg.DefectParams(min_area=3), fetch_masks=True, prefetch=prefetch)
+    got = list(stream_inspect(frames, grid, device=cuda, **kw))
+    ref = list(stream_inspect(frames, grid, device="cpu", **kw))
+    assert [r.index for r in got] == list(range(5))
+    for a, b in zip(got, ref):
+        for f in ("verdicts", "areas", "valid", "seg_masks", "defect_masks"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_median_probe_baseline_matches_plain(cuda, tile):
+    """Kernel L's baseline equals kernel B's plain version at every tile
+    shape; the ablations launch (they are timed, never compared)."""
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(rng.randint(0, 256, (3, 37, 53), dtype=np.uint8)).to(cuda)
+    lo = torch.tensor([0, 4, 37], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([37, 30, 0], dtype=torch.int32, device=cuda)
+    for k, thr in [(3, 0), (21, 24), (45, 255)]:
+        _assert_equal(probe(x, k, thr, lo, hi, "baseline", tile),
+                      median_residual_mask_plain(x, k, thr, lo, hi))
+    reset_launches()
+    for mode in MODES[1:]:
+        assert probe(x, 21, 24, lo, hi, mode, tile).shape == x.shape
+    torch.cuda.synchronize()
+    assert LAUNCHES["median_probe"] == len(MODES) - 1

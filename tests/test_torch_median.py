@@ -79,3 +79,29 @@ def test_whole_plane_matches_reference_median(k, thr):
         got = median_residual_mask_plain(torch.from_numpy(x), k, thr).numpy()
         np.testing.assert_array_equal(got, ref, err_msg=f"shape {shape}")
 
+
+
+@pytest.mark.parametrize("tile", [(32, 8), (64, 8)])
+def test_median_probe_baseline_and_ablations(tile):
+    """The median-probe tool (kernel L): its baseline on the CPU is kernel
+    B's plain version, equal to the JAX package's medianBlur residual on
+    the ROI rows; its ablations, wrong by construction, refuse the CPU."""
+    from tpu_inspect_torch.tools.median_probe import MODES, probe
+
+    rng = np.random.RandomState(31)
+    x = rng.randint(0, 256, (3, 23, 29), dtype=np.uint8)
+    lo = np.array([0, 4, 23], np.int32)
+    hi = np.array([23, 15, 0], np.int32)
+    bg = jmedian.median_blur_u8(jnp.asarray(x), 21)
+    resid = jnp.abs(jnp.asarray(x).astype(jnp.int32) - bg.astype(jnp.int32))
+    ref = np.asarray(jthr.threshold_binary(resid, 24))
+    rows = np.arange(23)[None, :, None]
+    ref = np.where((rows >= lo[:, None, None]) & (rows < hi[:, None, None]), ref, 0)
+    xt, lo_t, hi_t = torch.from_numpy(x), torch.from_numpy(lo), torch.from_numpy(hi)
+    got = probe(xt, 21, 24, lo_t, hi_t, "baseline", tile).numpy()
+    np.testing.assert_array_equal(got, ref.astype(np.uint8))
+    for mode in MODES[1:]:
+        with pytest.raises(ValueError, match="ablation"):
+            probe(xt, 21, 24, lo_t, hi_t, mode, tile)
+    with pytest.raises(ValueError):
+        probe(xt, 21, 24, lo_t, hi_t, "baseline", (8, 8))

@@ -226,7 +226,9 @@ def test_engine_import_loads_no_jax():
         "tpu_inspect_torch.ops.flood, tpu_inspect_torch.session, "
         "tpu_inspect_torch.render, tpu_inspect_torch.ui.server, "
         "tpu_inspect_torch.persistence, tpu_inspect_torch.imageio, "
-        "tpu_inspect_torch.viewport, tpu_inspect_torch.utils; "
+        "tpu_inspect_torch.viewport, tpu_inspect_torch.utils, "
+        "tpu_inspect_torch.streaming, tpu_inspect_torch.cli, tpu_inspect_torch.native, "
+        "tpu_inspect_torch.utils.profile, tpu_inspect_torch.tools.median_probe; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_inspect' or m.startswith('tpu_inspect.') "
         "or m == 'cv2' or m.startswith('cv2.')]; "
@@ -366,6 +368,17 @@ def test_host_copies_match_reference(tmp_path):
             jgeo.clamp_exclusion_to_base_unit(excl, 40, 30)
     with pytest.raises(ValueError):
         tgeo.BoxGrid(((0, 0, 4, 4), (5, 5, 4, 5)))
+    # synthetic.crop_units
+    from tpu_inspect.synthetic import crop_units as j_crop_units
+
+    from tpu_inspect_torch.synthetic import crop_units
+
+    img = make_mold_image(sample_grid_params(), (3000, 4096), seed=2)
+    boxes = ((0, 0, 40, 30), (50, 60, 40, 30))
+    for grid, jgrid in ((sample_grid_params(), j_sample_grid()),
+                        (tgeo.BoxGrid(boxes), jgeo.BoxGrid(boxes))):
+        got, ref = crop_units(img, grid), j_crop_units(img, jgrid)
+        assert got.dtype == ref.dtype and np.array_equal(got, ref)
     # persistence: the same JSON documents, CSV rows and mask pixels
     grid = tcfg.GridParams(base_unit=(3, 4, 20, 16), units_x=2, blocks_y=2, block_space_y=5)
     jgrid = jcfg.GridParams(**grid.__dict__)

@@ -2,14 +2,16 @@
 NVIDIA H100.
 
 The JAX/Pallas package :mod:`tpu_inspect` stays the reference; this package
-reproduces its inspection path (:func:`tpu_inspect_torch.engine.inspect_image`
-with the otsu/adaptive segmentation and threshold/canny defect methods, and
-``defect_intermediates``) bit-exactly with torch ops plus five CUDA C++
-kernels written for Hopper (``csrc/``): the segmentation/ROI tail, the
-median residual, the blob filter, seeded flood propagation and min-index
-labeling. It imports neither jax nor :mod:`tpu_inspect`; the host-only helpers
-it needs are numpy copies (``config``, ``geometry``, ``synthetic``,
-``ops/_contour_table``).
+reproduces it bit-exactly with torch ops plus twelve CUDA C++ kernels
+written for Hopper (``csrc/``, kernels A-L): the inspection paths
+(:func:`tpu_inspect_torch.engine.inspect_image` with the otsu/adaptive
+segmentation and threshold/canny defect methods, the chained seg+ROI tail,
+the whole-image route, ``defect_intermediates``), the session and UI
+server, the capture stream (:mod:`tpu_inspect_torch.streaming`), the CLI
+(``python -m tpu_inspect_torch.cli``), the native libpng/libtiff loader
+(:mod:`tpu_inspect_torch.native`) and the median-probe tool. It imports
+neither jax nor :mod:`tpu_inspect`; the host-only helpers it needs are
+copies.
 
 Public entry points take an explicit ``device`` ("cuda" by default, which
 raises when no GPU is present; pass ``device="cpu"`` to run the plain
@@ -34,6 +36,10 @@ def __getattr__(name):
         from tpu_inspect_torch import engine
 
         return getattr(engine, name)
+    if name in ("stream_inspect", "stream_inspect_paths"):
+        from tpu_inspect_torch import streaming
+
+        return getattr(streaming, name)
     raise AttributeError(name)
 
 
@@ -48,4 +54,6 @@ __all__ = [
     "inspect_image",
     "inspect_units",
     "segment_units",
+    "stream_inspect",
+    "stream_inspect_paths",
 ]

@@ -13,7 +13,8 @@
 // (441 for the main path's k = 21), not device memory (each input byte is
 // read into shared memory about 1 + 2r/TILE_H times). Design: a thread per
 // output pixel, a (TILE_H + 2r) x (TILE_W + 2r) uint8 tile per block, and
-// tiles wholly outside the unit's ROI rows store zeros and stop. The TPU
+// tiles wholly outside the unit's ROI rows store zeros and stop
+// (median_window.cuh, whose body kernel L's probe sweep shares). The TPU
 // kernel's histogram state, bf16 band matmuls and cdf descent are dropped:
 // integer counts are exact by construction.
 
@@ -21,67 +22,20 @@
 
 #include <cuda_runtime.h>
 
+#include "median_window.cuh"
+
 namespace {
 
 constexpr int kTileW = 32;
 constexpr int kTileH = 8;
-constexpr int kMaxR = 22;  // k <= 45 (k*k < 2048), the wrapper's bound
 
 __global__ void __launch_bounds__(kTileW * kTileH)
 median_residual_kernel(const uint8_t* __restrict__ x,
                        const int* __restrict__ row_lo,
                        const int* __restrict__ row_hi,
                        uint8_t* __restrict__ out, int H, int W, int k, int thr) {
-  __shared__ uint8_t tile[(kTileH + 2 * kMaxR) * (kTileW + 2 * kMaxR)];
-  const int u = blockIdx.z;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int gx = x0 + tx;
-  const int gy = y0 + ty;
-  const size_t off = static_cast<size_t>(u) * H * W;
-  const uint8_t* img = x + off;
-  uint8_t* o = out + off;
-  const int lo = row_lo[u];
-  const int hi = row_hi[u];
-  const bool inside = gx < W && gy < H;
-
-  if (y0 + kTileH <= lo || y0 >= hi) {  // block-uniform: no ROI row here
-    if (inside) o[gy * W + gx] = 0;
-    return;
-  }
-  const int r = k / 2;
-  const int tw = kTileW + 2 * r;
-  const int th = kTileH + 2 * r;
-  for (int j = ty * kTileW + tx; j < th * tw; j += kTileW * kTileH) {
-    const int jy = j / tw;
-    const int jx = j - jy * tw;
-    const int yy = min(max(y0 - r + jy, 0), H - 1);
-    const int xx = min(max(x0 - r + jx, 0), W - 1);
-    tile[j] = img[yy * W + xx];
-  }
-  __syncthreads();
-  if (!inside) return;
-  if (gy < lo || gy >= hi) {
-    o[gy * W + gx] = 0;
-    return;
-  }
-  const int g = tile[(ty + r) * tw + tx + r];
-  const int t_lo = g - thr - 1;
-  const int t_hi = g + thr;
-  int c_lo = 0;
-  int c_hi = 0;
-  for (int dy = 0; dy < k; ++dy) {
-    const uint8_t* row = tile + (ty + dy) * tw + tx;
-    for (int dx = 0; dx < k; ++dx) {
-      const int v = row[dx];
-      c_lo += v <= t_lo;
-      c_hi += v <= t_hi;
-    }
-  }
-  const int rank = (k * k + 1) / 2;
-  o[gy * W + gx] = (c_lo >= rank || c_hi < rank) ? 255 : 0;
+  tik::median_residual_tile<tik::kMedianBaseline, kTileW, kTileH>(x, row_lo, row_hi, out,
+                                                                  H, W, k, thr);
 }
 
 }  // namespace

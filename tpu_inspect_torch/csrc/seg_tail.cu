@@ -16,7 +16,8 @@
 // sweeps plus a CTA-wide "changed" flag, so they take O(#bends) rounds, not
 // O(diameter); labeling runs on the 2x2 block grid (1/4 of the pixels, and
 // OpenCV's tie-break order is native there); the winner is picked by one
-// 64-bit atomicMax on (area << 32) | ~key. The TPU kernel's lane pairing,
+// 64-bit atomicMax on (area << 32) | ~key (tail.cuh, shared with kernel K,
+// seg_roi_tail.cu). The TPU kernel's lane pairing,
 // MXU 0/1 matmuls and root-enumeration loop have no counterpart here.
 
 #include <cstdint>
@@ -24,6 +25,7 @@
 #include <cuda_runtime.h>
 
 #include "planes.cuh"
+#include "tail.cuh"
 
 namespace {
 
@@ -48,11 +50,7 @@ seg_tail_kernel(const uint8_t* __restrict__ x, const int* __restrict__ thr,
   int* lab = blocks + static_cast<size_t>(u) * 2 * nb;
   int* area = lab + nb;
 
-  __shared__ int s_flag;
-  __shared__ unsigned long long s_best;
-  __shared__ unsigned long long s_sx;
-  __shared__ unsigned long long s_sy;
-  __shared__ int s_rlo, s_rhi, s_clo, s_chi;
+  __shared__ tik::TailShared s;
 
   // head: fused threshold compare, or binarize to the 0/255 domain
   const int t = has_thr ? thr[u] : 0;
@@ -65,83 +63,13 @@ seg_tail_kernel(const uint8_t* __restrict__ x, const int* __restrict__ thr,
   uint8_t* m = tik::apply_stages(prog, pa, pb, pt, H, W);
 
   if (fill) {
-    tik::exterior_flood(m, pt, H, W, &s_flag);
+    tik::exterior_flood(m, pt, H, W, &s.flag);
     for (int i = tid; i < HW; i += nt) m[i] = (m[i] || !pt[i]) ? 255 : 0;
     __syncthreads();
   }
 
-  tik::block_codes(m, code, H, W, wb, nb);
-  for (int b = tid; b < nb; b += nt) area[b] = 0;
-  if (tid == 0) {
-    s_best = 0ull;
-    s_sx = 0ull;
-    s_sy = 0ull;
-    s_rlo = H;
-    s_rhi = 0;
-    s_clo = W;
-    s_chi = 0;
-  }
-  __syncthreads();
-  tik::label_blocks(code, lab, hb, wb, &s_flag);
-
-  for (int b = tid; b < nb; b += nt) {
-    const int c = code[b];
-    if (c) atomicAdd(&area[lab[b]], __popc(c));
-  }
-  __syncthreads();
-  for (int b = tid; b < nb; b += nt) {
-    if (code[b] && lab[b] == b) {
-      const unsigned long long key =
-          (static_cast<unsigned long long>(area[b]) << 32) |
-          static_cast<unsigned long long>(0xFFFFFFFFu - static_cast<unsigned>(b));
-      atomicMax(&s_best, key);
-    }
-  }
-  __syncthreads();
-  const unsigned long long best = s_best;
-  const bool has = best != 0ull;
-  const int root =
-      has ? static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(best & 0xFFFFFFFFull))
-          : -1;
-  const int best_area = static_cast<int>(best >> 32);
-
-  long long sx = 0;
-  long long sy = 0;
-  int rlo = H, rhi = 0, clo = W, chi = 0;
-  uint8_t* o = out + static_cast<size_t>(u) * HW;
-  for (int i = tid; i < HW; i += nt) {
-    const int y = i / W;
-    const int xx = i - y * W;
-    const bool fg = m[i] != 0;
-    const bool in_best = fg && lab[(y >> 1) * wb + (xx >> 1)] == root;
-    if (in_best) {
-      sx += xx;
-      sy += y;
-      rlo = min(rlo, y);
-      rhi = max(rhi, y + 1);
-      clo = min(clo, xx);
-      chi = max(chi, xx + 1);
-    }
-    o[i] = (out_largest ? in_best : fg) ? 255 : 0;
-  }
-  if (sx) atomicAdd(&s_sx, static_cast<unsigned long long>(sx));
-  if (sy) atomicAdd(&s_sy, static_cast<unsigned long long>(sy));
-  if (rlo < H) atomicMin(&s_rlo, rlo);
-  if (rhi > 0) atomicMax(&s_rhi, rhi);
-  if (clo < W) atomicMin(&s_clo, clo);
-  if (chi > 0) atomicMax(&s_chi, chi);
-  __syncthreads();
-  if (tid == 0) {
-    int* st = stats + 8 * u;
-    st[0] = best_area;
-    st[1] = static_cast<int>(s_sx);
-    st[2] = static_cast<int>(s_sy);
-    st[3] = has ? 1 : 0;
-    st[4] = s_rlo;
-    st[5] = s_rhi;
-    st[6] = s_clo;
-    st[7] = s_chi;
-  }
+  tik::largest_tail(m, code, lab, area, out + static_cast<size_t>(u) * HW,
+                    stats + 8 * u, H, W, out_largest != 0, &s);
 }
 
 }  // namespace

@@ -32,19 +32,30 @@ devices alike (:func:`_whole_route`):
     fill labels (kernel E), top-level blobs (kernel D seeded with each fill
     region's first pixel), Green's filter and filled paint (kernel G)
 
+:func:`_inspect_image_device` is the program of one capture, shared by
+:func:`inspect_image` and the capture stream
+(:mod:`tpu_inspect_torch.streaming`). On the reference capture with the
+chain flag set (``_ENABLE_CHAIN``, read once at import from
+``TPU_INSPECT_ENABLE_CHAIN``, as the JAX package does) and the otsu method,
+the seg tail, the exclusion zone and the ROI tail run chained in ONE launch
+of kernel K (:func:`_segment_roi`, ``csrc/seg_roi_tail.cu``) in place of
+kernel A's two; the defect pass then starts from K's ROI
+(:func:`_defect_from_roi`). With the flag unset the split path above runs.
+
 :func:`defect_intermediates` is the per-unit diagnostic pass; its contour
 analysis runs kernel D (exterior flood) and kernel E (labeling, twice), and
 its 3x3 open kernel I. Kernel J (labels and the largest component's stats
 in one launch) serves the session's erosion preview
 (:func:`tpu_inspect_torch.render.erosion_outline_mask`).
 
-Every stage is bit-exact vs the JAX package. On ``device="cuda"`` the ten
+Every stage is bit-exact vs the JAX package. On ``device="cuda"`` the
 kernels are the hand-written CUDA sources in ``csrc/``; on ``device="cpu"``
 their plain PyTorch versions run.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,7 +72,7 @@ from tpu_inspect_torch.ops.cc import component_stats, label_components
 from tpu_inspect_torch.ops.common import as_odd
 from tpu_inspect_torch.ops.contour import analyze_blobs
 from tpu_inspect_torch.ops.flood import propagate
-from tpu_inspect_torch.ops.fused import seg_tail, seg_tail_fits, tail_mask
+from tpu_inspect_torch.ops.fused import seg_roi_tail, seg_tail, seg_tail_fits, tail_mask
 from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
 from tpu_inspect_torch.ops.hole_fill import exterior_background
 from tpu_inspect_torch.ops.median import median_blur_u8, median_residual_mask
@@ -364,11 +375,11 @@ def _candidates(crops, params: DefectParams, roi_stats):
     )
 
 
-def _defect(crops, seg_masks, params: DefectParams):
-    """Defect pass -> (masks u8, found bool, area int32, verdict bool)
-    (indexing_ui.py:1471-1572, :1669-1700)."""
-    roi, st = _defect_roi(seg_masks, params)
-    roi_area = st[:, 0]
+def _defect_from_roi(crops, roi, roi_stats, params: DefectParams):
+    """Defect pass given the ROI and its stats row ([U, 8]: area, ..., row
+    bounds), from :func:`_defect_roi` or kernel K -> (masks u8, found bool,
+    area int32, verdict bool) (indexing_ui.py:1519-1572, :1669-1700)."""
+    roi_area = roi_stats[:, 0]
     # max_area = max(min_area, int(roi_area * 0.98)): truncation of the
     # double product; the filter compares exact 2x contour areas
     min_area = int(params.min_area)
@@ -378,12 +389,76 @@ def _defect(crops, seg_masks, params: DefectParams):
     ).to(torch.int32)
     filt = _whole_blobs if _whole_route(*crops.shape[1:]) else blob_filter
     out, area = filt(
-        _candidates(crops, params, st), (2 * max_area).contiguous(),
+        _candidates(crops, params, roi_stats), (2 * max_area).contiguous(),
         min_x2=2 * min_area, roi=roi, pre_open=params.method == "threshold",
     )
     found = area > 0
     verdict = found & (area >= min_area)
     return out, found, area, verdict
+
+
+def _defect(crops, seg_masks, params: DefectParams):
+    """Defect pass -> (masks u8, found bool, area int32, verdict bool)
+    (indexing_ui.py:1471-1572, :1669-1700)."""
+    return _defect_from_roi(crops, *_defect_roi(seg_masks, params), params)
+
+
+# Read ONCE at import, as the JAX package reads it: set the variable before
+# importing, or set this attribute. Off by default, so the split path stays
+# the default.
+_ENABLE_CHAIN = bool(os.environ.get("TPU_INSPECT_ENABLE_CHAIN"))
+
+
+def _seg_roi_chain_fits(crops_shape, seg: SegmentationParams) -> bool:
+    """Whether the reference capture's seg and ROI tails may run chained in
+    kernel K: the chain flag is set, the method is otsu (K fuses the Otsu
+    threshold's compare) and the unit is not on the whole-image route. K
+    runs any stage program on one unit's own plane, so the TPU kernel's
+    reach limits (its two-unit lane pairing) do not gate it."""
+    return _ENABLE_CHAIN and seg.method == "otsu" and not _whole_route(*crops_shape[1:])
+
+
+def _segment_roi(crops, seg: SegmentationParams, exclusions, erode_px: int):
+    """Reference-capture segmentation and the defect ROI chained in kernel K
+    (the port of the JAX package's ``_segment_roi_device``): Gaussian, Otsu,
+    then K with the exclusion zone rasterized once at zero shift. Returns
+    the :func:`_segment` tuple and (ROI u8, ROI stats [U, 8] int32)."""
+    u, h, w = crops.shape
+    x = crops
+    if seg.gaussian_blur and seg.gaussian_blur > 0:
+        x = gaussian_blur_u8(x, as_odd(seg.gaussian_blur))
+    k = _morph_k(seg)
+    stages = close_open_stages(k) if k > 1 else ()
+    rects, circles = pack_exclusions(exclusions)
+    zone = None
+    if rects.shape[0] or circles.shape[0]:
+        z = torch.zeros((1,), dtype=torch.int32, device=crops.device)
+        zone = exclusion_zone((h, w), rects, circles, z, z)[0]
+    mask, st, roi, roi_st = seg_roi_tail(
+        x, stages, rect_erode_stages(erode_px), otsu_threshold(x), zone
+    )
+    sums = torch.stack([st[:, 1], st[:, 2], st[:, 0]], dim=-1).to(torch.int64)
+    shifts = torch.zeros((u, 2), dtype=torch.int32, device=crops.device)
+    return (mask, sums, st[:, 3] > 0, shifts), (roi, roi_st)
+
+
+def _inspect_image_device(image, origins, unit_hw, seg: SegmentationParams,
+                          defect: DefectParams, exclusions=(), ref_centroids=None,
+                          is_reference: bool = True, with_defects: bool = True):
+    """One capture's program, tensors in and device tensors out (no host
+    copy of any result): image [H, W] uint8 and origins [U, 2] on the
+    device -> (masks u8, sums [U, 3] int64, has_fg, shifts [U, 2] int32,
+    (defect masks, found, area, verdict) or None without defects). The
+    port of the JAX package's ``_inspect_image_device``; ``seg`` and
+    ``defect`` are validated by the caller."""
+    crops = gather_crops(image, origins, unit_hw)
+    if with_defects and is_reference and _seg_roi_chain_fits(crops.shape, seg):
+        seg_out, (roi, roi_st) = _segment_roi(crops, seg, exclusions, int(defect.erode_px))
+        return seg_out + (_defect_from_roi(crops, roi, roi_st, defect),)
+    seg_out = _segment(crops, seg, exclusions, ref_centroids, is_reference)
+    if not with_defects:
+        return seg_out + (None,)
+    return seg_out + (_defect(crops, seg_out[0], defect),)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -513,15 +588,13 @@ def inspect_image(image, grid: GridParams, seg: SegmentationParams,
     Returns (SegmentationResult, InspectionResult or None when ``defect``
     is None)."""
     dev = resolve_device(device)
-    seg = seg.validated()
-    dparams = (defect or DefectParams()).validated()
-    image_t = _as_u8(image, dev)
     origins = torch.from_numpy(grid_origins(grid)).to(dev)
     _, _, w, h = grid.base_unit
-    crops = gather_crops(image_t, origins, (int(h), int(w)))
-    seg_out = _segment(crops, seg, exclusions, ref_centroids, bool(is_reference))
-    if defect is None:
-        return _seg_result(*seg_out), None
-    return _seg_result(*seg_out), _insp_result(
-        *_defect(crops, seg_out[0], dparams), areas_dtype=np.int64
+    out = _inspect_image_device(
+        _as_u8(image, dev), origins, (int(h), int(w)), seg.validated(),
+        (defect or DefectParams()).validated(), exclusions, ref_centroids,
+        bool(is_reference), defect is not None,
     )
+    if out[4] is None:
+        return _seg_result(*out[:4]), None
+    return _seg_result(*out[:4]), _insp_result(*out[4], areas_dtype=np.int64)

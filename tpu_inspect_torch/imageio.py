@@ -1,10 +1,12 @@
 """Image decode and the crop gather (the port of :mod:`tpu_inspect.imageio`).
 
 Decode parity with the reference's robust loader (ImageWidget.load_image,
-indexing_ui.py:145-194): cv2 decodes on the host (imported inside the
-decode functions only, as the JAX package's fallback does), uint16 inputs
-scale /256, other non-uint8 inputs are min-max normalized, and BGR(A)
-converts to gray with OpenCV's fixed-point weights (:mod:`ops.color`).
+indexing_ui.py:145-194): PNG and TIFF decode through the port's native
+libpng/libtiff library (:mod:`tpu_inspect_torch.native`) first, and cv2
+(imported inside the decode functions only, as the JAX package's fallback
+is) takes what it declines; uint16 inputs scale /256, other non-uint8
+inputs are min-max normalized, and BGR(A) converts to gray with OpenCV's
+fixed-point weights (:mod:`ops.color`).
 
 The crop gather replaces the per-unit ``QImage.copy`` host loop
 (indexing_ui.py:2270): all unit origins go to the device as one [U, 2]
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_inspect_torch import native
 from tpu_inspect_torch.device import resolve_device
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.ops.color import bgr_to_gray
@@ -23,13 +26,30 @@ from tpu_inspect_torch.ops.color import bgr_to_gray
 
 def load_gray(path: str) -> np.ndarray:
     """Decode an image file to uint8 grayscale (reference loader semantics:
-    uint16 /256, float min-max normalized, BGR(A) to gray)."""
-    import cv2
-
-    img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    uint16 /256, float min-max normalized, BGR(A) to gray). The native
+    decoder first; cv2 for what it declines."""
+    img = native.decode(path)
     if img is None:
-        raise RuntimeError(f"Unable to load image: {path}")
+        import cv2
+
+        img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise RuntimeError(f"Unable to load image: {path}")
     return _to_gray_u8(img)
+
+
+def load_gray_stream(paths, capacity: int = 4, threads: int = 3):
+    """Iterate uint8 grayscale frames for a list of image paths.
+
+    Same per-frame semantics as :func:`load_gray`, but decode runs ahead on
+    the native worker pool (:class:`tpu_inspect_torch.native.StreamLoader`)
+    so host decode overlaps device compute in streaming deployments. Frames
+    the native decoder declines fall back to :func:`load_gray` one by one;
+    unreadable files raise at their position in the stream.
+    """
+    paths = [str(p) for p in paths]
+    for path, raw in zip(paths, native.StreamLoader(paths, capacity, threads)):
+        yield _to_gray_u8(raw) if raw is not None else load_gray(path)
 
 
 def decode_gray(data: bytes) -> np.ndarray:

@@ -59,6 +59,11 @@ _SIGNATURES = {
     "tik_morph_stage": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # fg, mask, stats, scratch, err, U, H, W, stream
     "tik_label_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, thr, prog, roi_prog, zone, seg_out, seg_stats, roi_out, roi_stats,
+    # planes, blocks, U, H, W, stream
+    "tik_seg_roi_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, row_lo, row_hi, out, U, H, W, k, thr, mode, tile_w, tile_h, stream
+    "tik_median_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

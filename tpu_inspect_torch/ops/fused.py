@@ -13,6 +13,13 @@ col_lo, col_hi (an empty unit gives (0, 0, 0, 0, H, 0, W, 0)).
 
 :func:`seg_tail` launches the CUDA kernel (``csrc/seg_tail.cu``) for CUDA
 tensors and runs :func:`seg_tail_plain` for CPU tensors.
+
+Kernel K, :func:`seg_roi_tail`, is the port of
+:func:`tpu_inspect.ops.fused_pallas.seg_roi_tail_paired_pallas`: the seg
+tail, the shared exclusion zone and the ROI tail of the reference capture
+chained in one launch (``csrc/seg_roi_tail.cu``), the seg mask never
+written out and read back between the two tails. Its plain version is
+:func:`seg_roi_tail_plain`.
 """
 
 from __future__ import annotations
@@ -82,3 +89,62 @@ def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None):
     build.check("seg_tail", err)
     LAUNCHES["seg_tail"] += 1
     return out, stats
+
+
+def seg_roi_tail_plain(x, stages, roi_stages, thr, zone=None):
+    """The plain PyTorch version of :func:`seg_roi_tail` (same contract):
+    ``seg_tail_plain(fill=True)``, the zone, then ``seg_tail_plain`` of the
+    ROI stages with ``out_largest``. It launches no kernel."""
+    mask, stats = seg_tail_plain(x, stages, fill=True, thr=thr)
+    if zone is not None:
+        mask = torch.where(zone > 0, torch.zeros_like(mask), mask)
+    roi, roi_stats = seg_tail_plain(mask, roi_stages, out_largest=True)
+    return mask, stats, roi, roi_stats
+
+
+def seg_roi_tail(x, stages, roi_stages, thr, zone=None):
+    """The chained seg tail + shared exclusion zone + ROI tail of the
+    reference capture.
+
+    x [U, H, W] uint8 blurred gray, ``thr`` [U] int32 (THRESH_BINARY_INV,
+    x <= thr), ``stages`` the seg stage chain (filled after it), ``roi_stages``
+    the ROI's erode chain, ``zone`` an optional [H, W] uint8 or bool plane
+    shared by every unit (> 0 excluded). Returns (seg mask [U, H, W] uint8
+    0/255 after the zone, seg stats [U, 8] int32 taken BEFORE the zone, ROI
+    mask [U, H, W] uint8 0/255 (the largest 8-CC of the eroded post-zone
+    mask), ROI stats [U, 8] int32), the rows in :data:`STAT_FIELDS` order.
+    The JAX function's 12 outputs are seg mask, seg stats[:, :4] (has_fg as
+    bool), ROI mask, ROI stats[:, 0], [:, 3] (bool) and [:, 4:8]."""
+    check_planes(x, "seg_roi_tail")
+    u, h, w = x.shape
+    check_vector(thr, "seg_roi_tail thr", u, x.device)
+    if zone is not None:
+        if zone.dtype == torch.bool:
+            zone = zone.view(torch.uint8)
+        if (zone.dtype != torch.uint8 or tuple(zone.shape) != (h, w)
+                or not zone.is_contiguous() or zone.device != x.device):
+            raise ValueError(
+                f"seg_roi_tail: expected a contiguous [{h}, {w}] uint8 zone on "
+                f"{x.device}, got {zone.dtype} {tuple(zone.shape)} on {zone.device}"
+            )
+    if x.device.type == "cpu":
+        return seg_roi_tail_plain(x, stages, roi_stages, thr, zone)
+    if not seg_tail_fits(h, w):
+        raise ValueError(f"seg_roi_tail: unit {h}x{w} too large for int32 sums")
+    nb = ((h + 1) // 2) * ((w + 1) // 2)
+    mask, roi = torch.empty_like(x), torch.empty_like(x)
+    stats = torch.empty((u, 8), dtype=torch.int32, device=x.device)
+    roi_stats = torch.empty((u, 8), dtype=torch.int32, device=x.device)
+    planes = torch.empty(u * (3 * h * w + nb), dtype=torch.uint8, device=x.device)
+    blocks = torch.empty(u * 2 * nb, dtype=torch.int32, device=x.device)
+    prog = stage_program_tensor(tuple(stages), str(x.device))
+    roi_prog = stage_program_tensor(tuple(roi_stages), str(x.device))
+    err = build.lib().tik_seg_roi_tail(
+        x.data_ptr(), thr.data_ptr(), prog.data_ptr(), roi_prog.data_ptr(),
+        None if zone is None else zone.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+        roi.data_ptr(), roi_stats.data_ptr(), planes.data_ptr(), blocks.data_ptr(),
+        u, h, w, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("seg_roi_tail", err)
+    LAUNCHES["seg_roi_tail"] += 1
+    return mask, stats, roi, roi_stats

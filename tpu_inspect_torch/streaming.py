@@ -1,0 +1,183 @@
+"""Streaming multi-image inline inspection (BASELINE.json config 5).
+
+The port of :mod:`tpu_inspect.streaming`. The reference inspects one image
+at a time behind UI buttons; production deployment is a camera stream.
+Each frame is uploaded from a reused pinned host buffer with a non-blocking
+copy and its program (:func:`tpu_inspect_torch.engine._inspect_image_device`)
+is dispatched while earlier frames are still computing: up to ``prefetch``
+frames are in flight before the oldest one's results are fetched.
+
+The dispatch-ahead overlaps a frame's upload and head with the previous
+frame's tail only up to the Otsu scan, which copies each frame's histogram
+to the host (``ops/threshold.py``) and so waits for the frames queued
+before it on the stream.
+
+Verdicts, areas and found flags (a few hundred bytes) are fetched per
+frame; masks stay on the device unless ``fetch_masks`` asks for them
+(fetching 48 full masks costs more than computing them).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
+from tpu_inspect_torch.device import resolve_device
+from tpu_inspect_torch.engine import _inspect_image_device, ref_centroid_arrays
+from tpu_inspect_torch.geometry import grid_origins
+
+
+@dataclass
+class StreamResult:
+    index: int
+    verdicts: np.ndarray  # [U] bool
+    areas: np.ndarray  # [U] int64
+    valid: np.ndarray  # [U] bool (defect mask exists)
+    ng_count: int
+    seg_masks: np.ndarray | None = None  # [U, h, w] uint8 when requested
+    defect_masks: np.ndarray | None = None
+
+
+class _Uploader:
+    """Frames to the device through ``slots`` reused pinned host buffers.
+
+    A buffer is refilled only after the event recorded behind its last copy
+    has completed: refilling it earlier would overwrite a frame the copy
+    engine may still be reading. On the CPU a frame is wrapped as it is.
+    """
+
+    def __init__(self, dev: torch.device, slots: int):
+        self.dev = dev
+        self.slots = max(1, slots)
+        self.bufs: list[torch.Tensor | None] = [None] * self.slots
+        self.events: list[torch.cuda.Event | None] = [None] * self.slots
+        self.n = 0
+
+    def __call__(self, image: np.ndarray) -> torch.Tensor:
+        if self.dev.type != "cuda":
+            return torch.from_numpy(image.copy())
+        s = self.n % self.slots
+        self.n += 1
+        if self.events[s] is not None:
+            self.events[s].synchronize()
+        if self.bufs[s] is None or tuple(self.bufs[s].shape) != image.shape:
+            self.bufs[s] = torch.empty(image.shape, dtype=torch.uint8, pin_memory=True)
+        np.copyto(self.bufs[s].numpy(), image)
+        out = self.bufs[s].to(self.dev, non_blocking=True)
+        self.events[s] = torch.cuda.Event()
+        self.events[s].record(torch.cuda.current_stream(self.dev))
+        return out
+
+
+def stream_inspect(
+    images: Iterable[np.ndarray],
+    grid: GridParams,
+    seg: SegmentationParams | None = None,
+    defect: DefectParams | None = None,
+    exclusions=(),
+    ref_centroids: dict[int, tuple[float, float]] | None = None,
+    prefetch: int = 2,
+    fetch_masks: bool = False,
+    device: str | torch.device = "cuda",
+) -> Iterator[StreamResult]:
+    """Inspect a stream of grayscale images with pipelined dispatch.
+
+    ``ref_centroids`` (from the reference capture) enables per-unit
+    exclusion alignment for every streamed frame; without anchors frames
+    are treated as reference-aligned (zero shift), which is also the gate
+    of the chained seg+ROI kernel (``engine._ENABLE_CHAIN``).
+    """
+    dev = resolve_device(device)
+    seg = (seg or SegmentationParams()).validated()
+    defect = (defect or DefectParams()).validated()
+    origins = torch.from_numpy(grid_origins(grid)).to(dev)
+    u = origins.shape[0]
+    _, _, w, h = grid.base_unit
+    unit_hw = (int(h), int(w))
+    _, ref_ok = ref_centroid_arrays(ref_centroids or {}, u)
+    is_reference = not bool(ref_ok.any())
+    prefetch = max(1, int(prefetch))
+    upload = _Uploader(dev, prefetch + 1)
+
+    def dispatch(image):
+        masks, _, _, _, (dmasks, found, area, verdict) = _inspect_image_device(
+            upload(image), origins, unit_hw, seg, defect, exclusions,
+            None if is_reference else ref_centroids, is_reference, True,
+        )
+        return (verdict, area, found) + ((masks, dmasks) if fetch_masks else ())
+
+    def collect(i, out):
+        verdict, area, found = (t.cpu().numpy() for t in out[:3])
+        res = StreamResult(
+            index=i,
+            verdicts=verdict,
+            areas=area.astype(np.int64),
+            valid=found,
+            ng_count=int(verdict.sum()),
+        )
+        if fetch_masks:
+            res.seg_masks = out[3].cpu().numpy()
+            res.defect_masks = out[4].cpu().numpy()
+        return res
+
+    inflight: deque[tuple[int, tuple]] = deque()
+    shape0 = None
+    for i, image in enumerate(images):
+        image = np.ascontiguousarray(image, dtype=np.uint8)
+        # the reference blocks size-mismatched captures once a grid exists
+        # (indexing_ui.py:1212-1222); silently clamped crops would inspect
+        # the wrong pixels
+        if shape0 is None:
+            shape0 = image.shape
+        elif image.shape != shape0:
+            raise ValueError(
+                f"frame {i} size {image.shape[::-1]} does not match the "
+                f"stream's first frame {shape0[::-1]}"
+            )
+        inflight.append((i, dispatch(image)))
+        while len(inflight) > prefetch:
+            j, out = inflight.popleft()
+            yield collect(j, out)
+    while inflight:
+        j, out = inflight.popleft()
+        yield collect(j, out)
+
+
+def stream_inspect_paths(
+    paths,
+    grid: GridParams,
+    seg: SegmentationParams | None = None,
+    defect: DefectParams | None = None,
+    exclusions=(),
+    ref_centroids: dict[int, tuple[float, float]] | None = None,
+    prefetch: int = 2,
+    fetch_masks: bool = False,
+    decode_ahead: int = 4,
+    decode_threads: int = 3,
+    device: str | torch.device = "cuda",
+) -> Iterator[StreamResult]:
+    """:func:`stream_inspect` over image *files*: the native prefetch loader
+    (:class:`tpu_inspect_torch.native.StreamLoader`) decodes ahead on C++
+    worker threads while the device pipeline runs, so neither libpng/libtiff
+    nor the reference's uint16/minmax normalization
+    (:func:`tpu_inspect_torch.imageio.load_gray_stream`) stalls the stream.
+    The reference decodes synchronously on the UI thread at switch time
+    instead (indexing_ui.py:145-194, :1225)."""
+    from tpu_inspect_torch.imageio import load_gray_stream
+
+    yield from stream_inspect(
+        load_gray_stream(paths, capacity=decode_ahead, threads=decode_threads),
+        grid,
+        seg,
+        defect,
+        exclusions=exclusions,
+        ref_centroids=ref_centroids,
+        prefetch=prefetch,
+        fetch_masks=fetch_masks,
+        device=device,
+    )

@@ -89,6 +89,12 @@ def make_mold_image(
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
+def crop_units(image: np.ndarray, grid: GridParams) -> np.ndarray:
+    """Gather unit crops into a [units, h, w] array (host-side reference)."""
+    crops = [image[y : y + h, x : x + w] for x, y, w, h in grid_boxes(grid)]
+    return np.stack(crops)
+
+
 def serpentine_plane(h: int, w: int) -> np.ndarray:
     """A [H, W] uint8 0/1 plane holding one long 1-px path (port-only
     fixture for the flood and labeling kernels).
