@@ -8,8 +8,9 @@ Run from the repository root with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build the twelve CUDA kernels (A-L) from ``tpu_inspect_torch/csrc`` (one
-   nvcc per source, all started together, sm_90a);
+2. build the thirteen CUDA kernels (A-L and the Otsu head kernel) from
+   ``tpu_inspect_torch/csrc`` (one nvcc per source, all started together,
+   sm_90a);
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
    bit-exact (tolerance 0): the standard workload's own stage inputs
    (48 units of 315x316: the seg and ROI tails, the median residual, the
@@ -26,8 +27,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    unit of the erosion preview; kernel K (the chained seg tail, zone and
    ROI tail) on the 48 units with and without the zone at erode_px 0, 6 and
    12; kernel L (the median probe) in its baseline mode at each tile shape;
+   the Otsu kernel (histogram and scan) on the 48 blurred crops and on the
+   whole plane; kernels A and K at erode_px 200 and A, C and K on units too
+   large for their shared-memory layout (the global-scratch variant);
    seeded random planes of odd sizes with an empty and a full unit, and a
-   long 1-px serpentine;
+   long 1-px serpentine; then the ``cuda``-marked tests of the Otsu kernel
+   and of the redesigned A, K and C (``tests/test_torch_otsu.py``,
+   ``tests/test_torch_cuda.py``: word-edge widths, staircases, spirals,
+   real Canny edges) in one pytest subprocess;
 4. every path on the card, each driven with the launch counts set to 0 just
    before it and read just after, and held field by field against the same
    engine on ``device="cpu"``: ``engine.inspect_image`` for the four
@@ -57,11 +64,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    over PNG files and the CLI as subprocesses (gridgen, inspect, stream,
    doctor, profile), where the host can decode files (the port's
    libpng/libtiff loader, or cv2); the median-probe tool (kernel L's sweep);
+   and, after a warm-up call, one capture's default program
+   (``engine._inspect_image_device``: the reference capture, otsu/threshold,
+   the exclusions) dispatched under ``torch.cuda.set_sync_debug_mode("error")``:
+   nothing in it waits for the card;
 5. times on the card: each kernel vs its plain version (CUDA events, median
    of repeated runs at the paths' shapes, the whole planes included) beside
    its bound (the bytes the call must move at 3.35 TB/s), each combo's
    ``inspect_image`` steady-state wall ms/image (host image in, host
-   results out), the whole-image segmentation and seg+defect wall ms, the
+   results out), the walls of ``segment_units`` and ``inspect_units`` on one
+   4096x3000 unit (host arrays in, host results out; not ``bench.py``'s
+   metrics, which time other programs), the
    session's and the UI server's calls, kernel K against kernel A's two
    calls, the chained ``inspect_image`` against the split one, the stream's
    device and wall ms per frame at prefetch 1 and 2 beside its modeled
@@ -79,6 +92,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
@@ -335,7 +349,7 @@ def main() -> int:
     from tpu_inspect_torch import engine, geometry, native, render
     from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
     from tpu_inspect_torch.imageio import gather_crops
-    from tpu_inspect_torch.kernels import LAUNCHES, build, reset_launches
+    from tpu_inspect_torch.kernels import LAUNCHES, build, error_flag, reset_launches
     from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain, candidate_mask
     from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
     from tpu_inspect_torch.ops.canny import canny_planes, canny_u8
@@ -371,7 +385,10 @@ def main() -> int:
     )
     from tpu_inspect_torch.ops.threshold import (
         adaptive_threshold_inv,
+        histogram_u8,
         otsu_threshold,
+        otsu_threshold_from_hist,
+        otsu_threshold_plain,
         threshold_binary_inv,
     )
     from tpu_inspect_torch.persistence import load_grid
@@ -534,16 +551,31 @@ def main() -> int:
              (roi_rows_b, row_lo, row_hi))
             for tw, th in median_probe.TILES
         ],
+        "otsu": [
+            ("48 blurred crops", lambda f: f(x), (x,)),
+        ],
     }
+    # units too large for kernels A's, C's and K's shared-memory layout:
+    # their global-scratch variant
+    big_rng = np.random.RandomState(21)
+    big_u = torch.from_numpy(((big_rng.rand(2, 401, 421) > 0.45) * 255).astype(np.uint8)).to(dev)
+    big_thr = torch.full((2,), 127, dtype=torch.int32, device=dev)
+    big_mx = torch.full((2,), 2 * 401 * 421, dtype=torch.int32, device=dev)
+    erode200 = rect_erode_stages(200)
     other_cases = {
         "seg_tail": [
             ("adaptive seg form", lambda f: f(x_ad, co, fill=True), (x_ad,)),
+            ("roi form, erode 200", lambda f: f(seg_masks, erode200, out_largest=True),
+             (seg_masks,)),
+            ("global scratch 2x401x421", lambda f: f(big_u, co, fill=True), (big_u,)),
         ],
         "median_residual": [],
         "blob_filter": [
             ("canny form (roi, no open)",
              lambda f: f(edges, max_x2, min_x2=min_x2, roi=roi, pre_open=False),
              (edges, max_x2, roi)),
+            ("global scratch 2x401x421", lambda f: f(big_u, big_mx, min_x2=0, pre_open=True),
+             (big_u, big_mx)),
         ],
         "propagate": [
             ("border form, seg masks", lambda f: f(None, free, False, border_seed=True), (free,)),
@@ -574,6 +606,9 @@ def main() -> int:
             ("zone, erode 0", lambda f: f(x, co, (), thr, zone), (x, thr, zone)),
             ("zone, erode 12", lambda f: f(x, co, rect_erode_stages(12), thr, zone),
              (x, thr, zone)),
+            ("zone, erode 200", lambda f: f(x, co, erode200, thr, zone), (x, thr, zone)),
+            ("global scratch 2x401x421", lambda f: f(255 - big_u, co, erode, big_thr),
+             (big_u, big_thr)),
         ],
     }
     # the whole-image route (one inspect_units call on 1x3000x4096): B, D
@@ -611,6 +646,9 @@ def main() -> int:
             ("whole erode 13x13", lambda f: f(seg_mask_w, erode), (seg_mask_w,)),
             ("whole open 3x3", lambda f: f(cand_roi_w, open3), (cand_roi_w,)),
         ],
+        "otsu": [
+            ("whole plane", lambda f: f(x_w), (x_w,)),
+        ],
     }
     def probe_plain(x_, k_, thr_, lo=None, hi=None, mode="baseline", tile=None):
         """Kernel L's plain version: kernel B's (its baseline mode only; the
@@ -619,10 +657,14 @@ def main() -> int:
             fail(f"median_probe: no plain version of the {mode} ablation")
         return median_residual_mask_plain(x_, k_, thr_, lo, hi)
 
+    # kernels A, C and K set one bound flag, read after the comparisons and
+    # after the timings (a wrapper given none would wait for its own flag
+    # inside every timed call)
+    bound_flag = error_flag(dev)
     kernel_fns = {
-        "seg_tail": (seg_tail, seg_tail_plain),
+        "seg_tail": (functools.partial(seg_tail, err=bound_flag), seg_tail_plain),
         "median_residual": (median_residual_mask, median_residual_mask_plain),
-        "blob_filter": (blob_filter, blob_filter_plain),
+        "blob_filter": (functools.partial(blob_filter, err=bound_flag), blob_filter_plain),
         "propagate": (propagate, propagate_plain),
         "label": (label_components, label_components_plain),
         "cc_stats": (component_stats, component_stats_plain),
@@ -630,8 +672,9 @@ def main() -> int:
         "median_blur": (median_blur_u8, median_blur_u8_plain),
         "morph": (morph_chain, apply_stages),
         "label_stats": (largest_component_sums, largest_component),
-        "seg_roi_tail": (seg_roi_tail, seg_roi_tail_plain),
+        "seg_roi_tail": (functools.partial(seg_roi_tail, err=bound_flag), seg_roi_tail_plain),
         "median_probe": (median_probe.probe, probe_plain),
+        "otsu": (otsu_threshold, otsu_threshold_plain),
     }
 
     def compare(name, label, got, ref):
@@ -716,6 +759,8 @@ def main() -> int:
              lambda f: f(gray, 9, 24, lo_r, hi_r, "baseline", (64, 8))),
             ("median_probe", "baseline 16x16, every row",
              lambda f: f(gray, 21, 0, None, None, "baseline", (16, 16))),
+            ("otsu", "random", lambda f: f(gray)),
+            ("otsu", "two-level", lambda f: f(blobs_t)),
         ]
         for name, label, call in cases:
             fast, plain = kernel_fns[name]
@@ -751,6 +796,26 @@ def main() -> int:
     say(f"phase 3: serpentine 1x125x316 ({int(snake.sum())} px path) bit-exact for "
         f"propagate ({d_ms:.2f} ms wall) vs plain ({p_ms:.1f} ms wall, a round per "
         f"pixel) and label")
+    build.check_bounded("phase 3", bound_flag)
+    # the cuda-marked tests of the Otsu kernel and of the redesigned A, K and
+    # C (word-edge widths, staircases, spirals, erode 200, real Canny edges,
+    # the global-scratch variant) and the sync check, each against its plain
+    # version; the file's other tests repeat this script's own checks
+    mark("phase 3: the cuda-marked tests start")
+    tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py"]
+    selected = "otsu or tails_ or roi_erode or canny_form or waits_nowhere"
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
+         "--noconftest", "-p", "no:cacheprovider"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    tail = (proc.stdout.strip().splitlines() or ["(no output)"])[-1]
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-3000:], file=sys.stderr)
+        fail(f"the cuda-marked tests failed: {tail}")
+    if "skipped" in tail or "passed" not in tail:
+        fail(f"the cuda-marked tests did not all run: {tail}")
+    say(f"phase 3: cuda-marked tests ({', '.join(tests)}): {tail}")
 
     # ---- phase 4: every path on the card vs the CPU run -----------------
     mark("phase 4 starts")
@@ -787,7 +852,8 @@ def main() -> int:
             s_cpu, i_cpu = engine.inspect_image(img, cpu_grid, sp, dp, device="cpu", **kw)
             cpu_s = time.perf_counter() - t0
             cpu_runs[path] = (s_cpu, i_cpu)
-            if launches["seg_tail"] < 2 or any(launches[n] < 1 for n in expect[def_m]):
+            if (launches["seg_tail"] < 2 or any(launches[n] < 1 for n in expect[def_m])
+                    or launches["otsu"] != (2 if seg_m == "otsu" else 0)):
                 fail(f"{path}: the path missed a kernel, launches {launches}")
             for field in ("masks", "centroids", "centroid_valid", "shifts"):
                 a, b = getattr(s_gpu, field)[:n_cpu], getattr(s_cpu, field)
@@ -808,6 +874,36 @@ def main() -> int:
                 fail(f"{path}: shift not recovered: median {med_shift}, expected [7, -4]")
             if is_ref:
                 ref_cent = s_gpu.centroid_dict()
+
+    # one capture's program waits for the card nowhere: after a warm-up
+    # call, the reference capture's default program (otsu/threshold, the
+    # exclusions) dispatched under the sync debug mode "error", which raises
+    # at any call that would wait (a blocking copy, an .item(), a bincount);
+    # the bound flag is read after, where a caller copies results out. The
+    # anchored program (a later capture with the reference's anchors) too.
+    anchors_ref = cpu_runs["otsu/threshold reference"][0].centroid_dict()
+    for label, ref_c, is_ref in (("reference", None, True), ("anchored", anchors_ref, False)):
+        def dispatch(err, ref_c=ref_c, is_ref=is_ref):
+            return engine._inspect_image_device(image, origins, (h, w), seg, dparams,
+                                                work["exclusions"], ref_c, is_ref, True, err)
+
+        dispatch(error_flag(dev))
+        torch.cuda.synchronize()
+        flag = error_flag(dev)
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = dispatch(flag)
+        except RuntimeError as e:
+            fail(f"sync check ({label}): the program waited for the card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        build.check_bounded(f"sync check ({label})", flag)
+        ng = int(out[4][3].sum())
+        if is_ref and ng != int(cpu_runs["otsu/threshold reference"][1].verdicts.sum()):
+            fail(f"sync check ({label}): NG {ng} differs from the CPU run")
+        say(f"phase 4: {label} capture's default program dispatched under "
+            f"set_sync_debug_mode('error') without a wait: NG {ng}/48, launches {dict(LAUNCHES)}")
 
     crops_np = crops.cpu().numpy()
     masks_np = seg_masks.cpu().numpy()
@@ -864,9 +960,14 @@ def main() -> int:
                 if a.dtype != b.dtype or not np.array_equal(a, b):
                     fail(f"{path}: {field.name} differs from the CPU run")
 
-    seg_kernels = ("propagate", "label", "cc_stats")
+    seg_kernels = ("otsu", "propagate", "label", "cc_stats")
     def_kernels = {"threshold": seg_kernels + ("median_residual", "blob_select"),
                    "canny": seg_kernels + ("blob_select",)}
+
+    def route_kernels(seg_m, def_m):
+        """The kernels a whole-image combo must launch (the Otsu kernel for
+        the otsu method only)."""
+        return tuple(n for n in def_kernels[def_m] if n != "otsu" or seg_m == "otsu")
     # each entry point on the card is held against its own CPU run at full size
     whole_runs = [
         ("whole inspect_image otsu/threshold",
@@ -925,7 +1026,9 @@ def main() -> int:
         reset_launches()
         got = run("cuda")
         launches = dict(LAUNCHES)
-        route_launches(path, launches, def_kernels[def_m])
+        route_launches(path, launches, route_kernels(seg_m, def_m))
+        if seg_m != "otsu" and launches["otsu"]:
+            fail(f"{path}: the Otsu kernel ran for {seg_m}, launches {launches}")
         verdicts, areas = got[1].verdicts.tolist(), got[1].areas.tolist()
         if def_m not in CROPPED_DEFECT_METHODS:
             t0 = time.perf_counter()
@@ -937,7 +1040,7 @@ def main() -> int:
             continue
         reset_launches()
         got = engine.inspect_units(crop_np, sp, dp, excl, device="cuda")
-        route_launches(f"{path} crop", dict(LAUNCHES), def_kernels[def_m])
+        route_launches(f"{path} crop", dict(LAUNCHES), route_kernels(seg_m, def_m))
         t0 = time.perf_counter()
         ref = engine.inspect_units(crop_np, sp, dp, excl, device="cpu")
         cpu_s = time.perf_counter() - t0
@@ -1098,7 +1201,7 @@ def main() -> int:
     engine._ENABLE_CHAIN = False
     launches_by_path[CHAIN_HOME] = launches
     if (launches["seg_roi_tail"] != 1 or launches["seg_tail"] or launches["median_residual"] != 1
-            or launches["blob_filter"] != 1):
+            or launches["blob_filter"] != 1 or launches["otsu"] != 2):
         fail(f"{CHAIN_HOME}: not the chained path, launches {launches}")
     split = engine.inspect_image(work["image"], grid, seg, dparams, exclusions=excl,
                                  device="cuda")
@@ -1148,7 +1251,7 @@ def main() -> int:
         tails = {"seg_tail": 2 * n_fr, "seg_roi_tail": 0} if anchored else {
             "seg_tail": 0, "seg_roi_tail": n_fr}
         if any(launches[n] != c for n, c in {**tails, "median_residual": n_fr,
-                                            "blob_filter": n_fr}.items()):
+                                            "blob_filter": n_fr, "otsu": 2 * n_fr}.items()):
             fail(f"{path}: launches {launches} for {n_fr} frames")
         held_stream(path, res, frame_refs[anchored])
         say(f"phase 4: {path}: {n_fr} frames 3000x4096 at prefetch {prefetch}, each equal to "
@@ -1256,9 +1359,16 @@ def main() -> int:
     times = {name: tuple(timed(name, cases.get(name, []))
                          for cases in (path_cases, other_cases, whole_cases))
              for name in kernel_fns}
+    # the Otsu kernel's two launches apart: the histogram, and the scan on
+    # a histogram already on the card
+    for label, plane in (("48 blurred crops", x), ("whole plane", x_w)):
+        hist_ms = cuda_ms(lambda p=plane: histogram_u8(p), REPS_KERNEL)
+        hist = histogram_u8(plane)
+        n_px = plane.shape[1] * plane.shape[2]
+        scan_ms = cuda_ms(lambda hh=hist, n=n_px: otsu_threshold_from_hist(hh, n), REPS_KERNEL)
+        say(f"phase 5: otsu [{label}] histogram {hist_ms:.4f} ms, scan {scan_ms:.4f} ms "
+            f"on {card}")
     mark("phase 5: the kernels' times done; end-to-end times start")
-    otsu_ms = cuda_ms(lambda: otsu_threshold(x), REPS_KERNEL)
-    say(f"phase 5: otsu_threshold (host f64 scan) {otsu_ms:.4f} ms on {card}")
     e2e = {}
     for seg_m, def_m in COMBOS:
         sp = SegmentationParams(method=seg_m).validated()
@@ -1292,9 +1402,9 @@ def main() -> int:
     # the whole-image configurations: segmentation (config1; the centroid
     # stats included) and seg+defect (config1defect), one 4096x3000 unit
     whole_e2e = {
-        "single_unit_4096x3000_segmentation_ms":
+        "segment_units_4096x3000_wall_ms":
             lambda: engine.segment_units(whole_np, sp0, excl),
-        "single_unit_4096x3000_seg_defect_ms":
+        "inspect_units_4096x3000_wall_ms":
             lambda: engine.inspect_units(whole_np, sp0, dp0, excl),
     }
     for label, run in whole_e2e.items():
@@ -1309,7 +1419,7 @@ def main() -> int:
         say(f"phase 5: {label} steady state {e2e[label]:.4f} ms (median of {REPS_WHOLE}, "
             f"min {min(walls):.4f}, wall incl. H2D/D2H) on {card}")
     profile_combo("whole-image seg+defect (inspect_units, otsu/threshold)",
-                  whole_e2e["single_unit_4096x3000_seg_defect_ms"], card)
+                  whole_e2e["inspect_units_4096x3000_wall_ms"], card)
 
     # kernel I's yardstick: its 13x13 rect erode is one library call, a max
     # pool of the negated plane (float16 holds 0..255 exactly; the -inf
@@ -1442,6 +1552,10 @@ def main() -> int:
         "seg_roi_tail": ("tpu_inspect_torch/csrc/seg_roi_tail.cu",
                          "tpu_inspect/ops/fused_pallas.py:1002"),
         "median_probe": ("tpu_inspect_torch/csrc/median_probe.cu", "tools/median_probe.py:142"),
+        # a head kernel: the JAX package computes the histogram and the scan
+        # with XLA ops (no pl.pallas_call)
+        "otsu": ("tpu_inspect_torch/csrc/otsu.cu",
+                 "none (XLA ops, tpu_inspect/ops/threshold.py:50-125)"),
     }
     # further TPU kernels whose function a kernel serves (whole-image
     # counterparts of tiled TPU kernels, and same-function resident ones)
@@ -1459,6 +1573,7 @@ def main() -> int:
         "label": "defect_intermediates/canny", "cc_stats": WHOLE_HOME,
         "blob_select": WHOLE_HOME, "median_blur": BIG_K_HOME, "morph": WHOLE_HOME,
         "label_stats": SESSION_HOME, "seg_roi_tail": CHAIN_HOME, "median_probe": PROBE_HOME,
+        "otsu": "otsu/threshold reference",
     }
     # kernel I's top-level numbers are its 13x13 erode form on the whole
     # plane, the form with a library yardstick (one of its launches there);
@@ -1497,6 +1612,7 @@ def main() -> int:
             entry["whole"] = {**summed(whole_rows, WHOLE_HOME),
                               "launches": launches_by_path[WHOLE_HOME][name]}
         entries.append(entry)
+    build.check_bounded("phase 5", bound_flag)
     say(f"phase 5: ms per call by path {json.dumps(e2e)} on {card}")
     say(card)
     say(json.dumps({"kernels": entries}))

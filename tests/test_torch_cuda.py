@@ -18,7 +18,7 @@ from tpu_inspect_torch import engine as teng
 from tpu_inspect_torch.kernels import LAUNCHES, reset_launches
 from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain
 from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
-from tpu_inspect_torch.ops.canny import canny_planes
+from tpu_inspect_torch.ops.canny import canny_planes, canny_u8
 from tpu_inspect_torch.ops.cc import (
     component_stats,
     component_stats_plain,
@@ -28,6 +28,7 @@ from tpu_inspect_torch.ops.cc import (
     largest_component_sums,
 )
 from tpu_inspect_torch.ops.flood import propagate, propagate_plain
+from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
 from tpu_inspect_torch.ops.fused import seg_roi_tail, seg_roi_tail_plain, seg_tail, seg_tail_plain
 from tpu_inspect_torch.ops.median import (
     median_blur_u8,
@@ -44,6 +45,8 @@ from tpu_inspect_torch.ops.morphology import (
 )
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
+from tpu_inspect_torch.kernels import build, error_flag
+from tpu_inspect_torch.ops.threshold import otsu_threshold
 from tpu_inspect_torch.streaming import stream_inspect
 from tpu_inspect_torch.synthetic import make_mold_image, serpentine_plane, standard_workload
 from tpu_inspect_torch.tools.median_probe import MODES, TILES, probe
@@ -385,3 +388,164 @@ def test_median_probe_baseline_matches_plain(cuda, tile):
         assert probe(x, 21, 24, lo, hi, mode, tile).shape == x.shape
     torch.cuda.synchronize()
     assert LAUNCHES["median_probe"] == len(MODES) - 1
+
+
+def _staircase(h, w):
+    """A 1-px 8-connected diagonal staircase: every step is a corner-only
+    link, one component as deep as the plane is wide."""
+    m = np.zeros((h, w), np.uint8)
+    for i in range(min(h, w)):
+        m[i, i] = 255
+    return m
+
+
+def _spiral(n):
+    """A 1-px square spiral wall with a 1-px corridor between its turns:
+    one winding fg component, and a background corridor from the border
+    (at row 1, column 0) to the centre that the border flood must follow
+    turn by turn."""
+    m = np.zeros((n, n), np.uint8)
+    lens = [n - 1, n - 1, n - 1]
+    step = n - 3
+    while step > 0:
+        lens += [step, step]
+        step -= 2
+    y = x = 0
+    m[0, 0] = 255
+    for i, length in enumerate(lens):
+        dy, dx = ((0, 1), (1, 0), (0, -1), (-1, 0))[i % 4]
+        for _ in range(length):
+            y, x = y + dy, x + dx
+            m[y, x] = 255
+    return m
+
+
+def _tails_equal(planes, cuda, stages_list=((),), roi_stages=(rect_erode_stages(1),)):
+    """Kernels A, K and C on uint8 0/255 planes against their plain
+    versions: A with and without the fill and out_largest, K on the planes
+    as gray (x <= 127 is the plane), C plain and with the pre-open."""
+    x = planes.to(cuda)
+    for stages in stages_list:
+        for fill, ol in ((False, True), (True, False), (True, True)):
+            _assert_equal(seg_tail(x, stages, fill, ol), seg_tail_plain(x, stages, fill, ol))
+    gray = 255 - x
+    thr = torch.full((x.shape[0],), 127, dtype=torch.int32, device=cuda)
+    for rs in roi_stages:
+        _assert_equal(seg_roi_tail(gray, stages_list[0], rs, thr),
+                      seg_roi_tail_plain(gray, stages_list[0], rs, thr))
+    max_x2 = torch.full((x.shape[0],), 2 * x.shape[1] * x.shape[2], dtype=torch.int32,
+                        device=cuda)
+    for kw in (dict(min_x2=0), dict(min_x2=8, pre_open=True), dict(min_x2=0, roi=x)):
+        _assert_equal(blob_filter(x, max_x2, **kw), blob_filter_plain(x, max_x2, **kw))
+
+
+@pytest.mark.parametrize("case", ["staircase", "spiral", "spiral inverted", "serpentine"])
+def test_tails_deep_planes_match_plain(cuda, case):
+    """The redesigned A, K and C on planes whose labeling and flood are
+    deepest: a 1-px diagonal staircase, a spiral (fg and background) and a
+    long 1-px serpentine."""
+    if case == "staircase":
+        p = np.stack([_staircase(315, 316), _staircase(315, 316)[::-1].copy()])
+    elif case == "spiral":
+        p = _spiral(315)[None]
+    elif case == "spiral inverted":
+        p = 255 - _spiral(315)[None]
+    else:
+        p = (serpentine_plane(125, 316) * 255).astype(np.uint8)[None]
+    _tails_equal(torch.from_numpy(np.ascontiguousarray(p)), cuda)
+
+
+@pytest.mark.parametrize("w", [1, 31, 32, 33, 316])
+def test_tails_word_edges_match_plain(cuda, w):
+    """Widths at and around the 32-pixel word (and one), an odd height, an
+    empty and a full unit: the last word's bits past W must stay out of
+    every plane; stage programs of one pass and of doubling passes."""
+    rng = np.random.RandomState(w)
+    p = ((rng.rand(4, 37, w) > 0.45) * 255).astype(np.uint8)
+    p[0] = 0
+    p[1] = 255
+    _tails_equal(
+        torch.from_numpy(p), cuda,
+        stages_list=((), close_open_stages(3), rect_erode_stages(2), rect_erode_stages(40),
+                     close_open_stages(31)),
+        roi_stages=(rect_erode_stages(0), rect_erode_stages(6), rect_erode_stages(40)),
+    )
+
+
+def _workload_tails(cuda, n_units=8):
+    """The standard workload's first units on the card: (blurred gray, Otsu
+    thresholds, seg masks from kernel A) as the main path makes them."""
+    wl = standard_workload()
+    crops = gather_crops(
+        torch.from_numpy(wl["image"]).to(cuda), torch.from_numpy(wl["origins"]).to(cuda),
+        wl["unit_hw"],
+    )[:n_units].contiguous()
+    x = gaussian_blur_u8(crops, 3).contiguous()
+    thr = otsu_threshold(x)
+    seg, _ = seg_tail(x, close_open_stages(3), fill=True, thr=thr)
+    return crops, x, thr, seg
+
+
+@pytest.mark.parametrize("erode", [0, 6, 12, 200])
+def test_roi_erode_on_workload_matches_plain(cuda, erode):
+    """The ROI tail (kernel A, out_largest) and the chained kernel K at
+    erode_px 0, 6 (the default), 12 and 200 (the doubling passes) on the
+    standard workload's seg masks."""
+    _, x, thr, seg = _workload_tails(cuda)
+    _assert_equal(seg, seg_tail_plain(x, close_open_stages(3), fill=True, thr=thr)[0])
+    rs = rect_erode_stages(erode)
+    _assert_equal(seg_tail(seg, rs, out_largest=True), seg_tail_plain(seg, rs, out_largest=True))
+    _assert_equal(seg_roi_tail(x, close_open_stages(3), rs, thr),
+                  seg_roi_tail_plain(x, close_open_stages(3), rs, thr))
+
+
+def test_blob_filter_canny_form_matches_plain(cuda):
+    """Kernel C's Canny form (no pre-open) on real Canny edges of the
+    standard workload inside its ROI, and the residual form beside it."""
+    crops, _, _, seg = _workload_tails(cuda)
+    roi, st = seg_tail(seg, rect_erode_stages(6), out_largest=True)
+    max_x2 = (2 * torch.floor(st[:, 0].double() * 0.98)).to(torch.int32).contiguous()
+    edges = canny_u8(crops, 15, 30)
+    assert int((edges > 0).sum()) > 1000
+    kw = dict(min_x2=40, roi=roi)
+    _assert_equal(blob_filter(edges, max_x2, **kw), blob_filter_plain(edges, max_x2, **kw))
+    cand = median_residual_mask(crops, 21, 30)
+    kw = dict(min_x2=40, roi=roi, pre_open=True)
+    _assert_equal(blob_filter(cand, max_x2, **kw), blob_filter_plain(cand, max_x2, **kw))
+
+
+def test_tails_global_variant_match_plain(cuda):
+    """Units too large for the kernels' shared-memory layout run the same
+    code on a global scratch (2 x 401 x 421: 227 KB holds neither layout)."""
+    rng = np.random.RandomState(21)
+    p = ((rng.rand(2, 401, 421) > 0.45) * 255).astype(np.uint8)
+    p[1, 100:300, 50:350] = 0
+    p[1, 150:250, 100:300] = 255
+    _tails_equal(torch.from_numpy(p), cuda, stages_list=((), close_open_stages(3)),
+                 roi_stages=(rect_erode_stages(6),))
+
+
+def test_inspect_image_device_waits_nowhere(cuda):
+    """After one warm-up call, one capture's default program (reference
+    capture, otsu/threshold, exclusions) dispatches under
+    torch.cuda.set_sync_debug_mode("error"): no call in it waits for the
+    card (the bound flag is read after, where results are copied out)."""
+    wl = standard_workload()
+    image = torch.from_numpy(wl["image"]).to(cuda)
+    origins = torch.from_numpy(wl["origins"]).to(cuda)
+    seg, dp = tcfg.SegmentationParams().validated(), tcfg.DefectParams().validated()
+
+    def run(err):
+        return teng._inspect_image_device(image, origins, wl["unit_hw"], seg, dp,
+                                          wl["exclusions"], None, True, True, err)
+
+    run(error_flag(cuda))
+    torch.cuda.synchronize()
+    err = error_flag(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run(err)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    build.check_bounded("inspect_image", err)
+    assert int(out[4][3].sum()) == 8, "NG 8/48 on the reference capture"

@@ -2,8 +2,8 @@
 NVIDIA H100.
 
 The JAX/Pallas package :mod:`tpu_inspect` stays the reference; this package
-reproduces it bit-exactly with torch ops plus twelve CUDA C++ kernels
-written for Hopper (``csrc/``, kernels A-L): the inspection paths
+reproduces it bit-exactly with torch ops plus thirteen CUDA C++ kernels
+written for Hopper (``csrc/``, kernels A-L and the Otsu head kernel): the inspection paths
 (:func:`tpu_inspect_torch.engine.inspect_image` with the otsu/adaptive
 segmentation and threshold/canny defect methods, the chained seg+ROI tail,
 the whole-image route, ``defect_intermediates``), the session and UI
@@ -40,6 +40,14 @@ def __getattr__(name):
         from tpu_inspect_torch import streaming
 
         return getattr(streaming, name)
+    if name == "InspectionSession":
+        from tpu_inspect_torch.session import InspectionSession
+
+        return InspectionSession
+    if name == "load_grid":
+        from tpu_inspect_torch.persistence import load_grid
+
+        return load_grid
     raise AttributeError(name)
 
 
@@ -47,12 +55,14 @@ __all__ = [
     "DefectParams",
     "GridParams",
     "InspectionParams",
+    "InspectionSession",
     "SegmentationParams",
     "defect_intermediates",
     "detect_defects_batch",
     "grid_boxes",
     "inspect_image",
     "inspect_units",
+    "load_grid",
     "segment_units",
     "stream_inspect",
     "stream_inspect_paths",

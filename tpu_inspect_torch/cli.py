@@ -229,6 +229,7 @@ def cmd_profile(args):
 
     from tpu_inspect_torch import engine
     from tpu_inspect_torch.device import resolve_device
+    from tpu_inspect_torch.kernels import build, error_flag
     from tpu_inspect_torch.synthetic import standard_workload
     from tpu_inspect_torch.utils.profile import profile_device
 
@@ -238,14 +239,18 @@ def cmd_profile(args):
     origins = torch.from_numpy(wl["origins"]).to(dev)
     seg, defect = _seg_params(args).validated(), _defect_params(args).validated()
 
+    err = error_flag(dev)
+
     def run():
         return engine._inspect_image_device(
-            image, origins, wl["unit_hw"], seg, defect, wl["exclusions"], None, True, True
+            image, origins, wl["unit_hw"], seg, defect, wl["exclusions"], None, True, True,
+            err,
         )
 
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"profiling on {name} ...", file=sys.stderr)
     prof = profile_device(run, iters=args.iters)
+    build.check_bounded("profile", err)
     if not prof.rows:
         print(f"no device time recorded on {dev}: run on the card (--device cuda) for "
               "per-kernel device time", file=sys.stderr)

@@ -122,11 +122,13 @@ label_stats_kernel(const uint8_t* __restrict__ fg, uint8_t* __restrict__ mask,
   }
   __syncthreads();
 
-  // resolve: every block to its root (roots are final now), and the area
+  // resolve: every block to its root (roots are final now), and the area;
+  // the walk stores nothing (a halving store racing with a block's own
+  // store of its root could leave a non-root in the slot)
   for (int b = tid; b < nb; b += kThreads) {
     const int c = code[b];
     if (!c) continue;
-    const int r = tik::uf::find_root<kShared>(par, b, nb, err);
+    const int r = tik::root_walk<kShared>(par, b, nb, err);
     par[b] = r;
     atomicAdd(area + r, __popc(c));
   }

@@ -1,7 +1,8 @@
 // Union-find over the pixels of a [U, H, W] batch, shared by kernel D
 // (flood.cu, seeded reachability) and kernel E (label.cu, min-index labels);
-// kernel J (label_stats.cu) runs the same find and union over one unit's
-// 2x2 block grid inside one CTA.
+// kernel J (label_stats.cu) and kernels A, C and K (planes.cuh:
+// label_blocks) run the same find and union over one unit's 2x2 block grid
+// inside one CTA.
 //
 // One thread per pixel over the whole batch (a grid over pixels, not one CTA
 // per unit). Pixels are global indices g = u*H*W + y*W + x; unions never

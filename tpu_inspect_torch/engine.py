@@ -4,9 +4,10 @@ Port of :mod:`tpu_inspect.engine`'s split path (``_inspect_image_device``
 with the chain flag off): one call goes from the raw grayscale image to
 per-unit masks, defect blobs and X/O verdicts::
 
-    gather crops -> Gaussian -> Otsu (or the adaptive Gaussian-mean
-    threshold) -> seg tail (kernel A: x <= thr or x > 0, close+open, hole
-    fill, largest-CC sums) -> alignment shifts -> exclusion zone -> ROI
+    gather crops -> Gaussian -> Otsu (the Otsu kernel: histogram and
+    scan; or the adaptive Gaussian-mean threshold) -> seg tail (kernel A:
+    x <= thr or x > 0, close+open, hole fill, largest-CC sums) ->
+    alignment shifts -> exclusion zone -> ROI
     tail (kernel A: (2n+1)^2 erode, largest CC) -> max area -> median
     residual (kernel B; or Canny, whose hysteresis is kernel D) -> blob
     filter (kernel C: ROI AND, 3x3 open for the residual, contourArea
@@ -65,6 +66,7 @@ from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParam
 from tpu_inspect_torch.device import resolve_device
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
+from tpu_inspect_torch.kernels import build, error_flag
 from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_fits, candidate_mask
 from tpu_inspect_torch.ops.blob_select import blob_select
 from tpu_inspect_torch.ops.canny import canny_u8
@@ -256,11 +258,12 @@ def _whole_route(h: int, w: int) -> bool:
     return h * w > WHOLE_MIN_PX or not (seg_tail_fits(h, w) and blob_filter_fits(h, w))
 
 
-def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None):
+def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None, err=None):
     """:func:`ops.fused.seg_tail`'s contract on the whole-image route
     (kernels D, E and F on whole planes), with int64 stats: the port of the
     JAX package's ``raw_segment`` + ``largest_component_sums`` and
-    ``_defect_roi_fallback``."""
+    ``_defect_roi_fallback``. ``err`` is not used: kernels D, E and F read
+    their own bound flags."""
     m = tail_mask(x, stages, thr, morph=morph_chain)
     if fill:
         m = m | ~exterior_background(m)
@@ -284,18 +287,30 @@ def _fill_regions(m: torch.Tensor):
     return fill_labels, top, ext
 
 
-def _whole_blobs(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
+def _whole_blobs(fg, max_x2, *, min_x2: int, roi=None, pre_open=False, err=None):
     """:func:`ops.blob.blob_filter`'s contract on the whole-image route (the
     port of ``contour.filter_and_select`` at whole-image size): the fill
     regions (:func:`_fill_regions`), then kernel G for the Green's filter
-    and the paint."""
+    and the paint. ``err`` is not used, as for :func:`_whole_tail`."""
     m = candidate_mask(fg, roi, pre_open, morph=morph_chain)
     return blob_select(*_fill_regions(m), max_x2, min_x2=min_x2)
 
 
-def _segment(crops, seg, exclusions, ref_centroids, is_reference):
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A small host array on ``dev`` without waiting for the copy: through
+    pinned memory, non-blocking, on the card (the allocator keeps the pinned
+    block until the copy is done)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _segment(crops, seg, exclusions, ref_centroids, is_reference, err=None):
     """Segmentation pass on [U, H, W] crops -> (mask u8, sums [U,3] int64,
-    has_fg [U] bool, shifts [U,2] int32), all on the crops' device."""
+    has_fg [U] bool, shifts [U,2] int32), all on the crops' device. ``err``:
+    the bound flag kernel A sets (:func:`tpu_inspect_torch.kernels.error_flag`),
+    read by the caller; without one each launch reads its own."""
     u, h, w = crops.shape
     dev = crops.device
     rects, circles = pack_exclusions(exclusions)
@@ -312,7 +327,7 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference):
     else:
         thr = otsu_threshold(x)
     tail = _whole_tail if _whole_route(h, w) else seg_tail
-    mask, st = tail(x, stages=stages, fill=True, out_largest=False, thr=thr)
+    mask, st = tail(x, stages=stages, fill=True, out_largest=False, thr=thr, err=err)
     area, sx, sy = st[:, 0], st[:, 1], st[:, 2]
     has_fg = st[:, 3] > 0
 
@@ -326,8 +341,8 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference):
         centroid = torch.stack(
             [sx.to(torch.float64) / cnt, sy.to(torch.float64) / cnt], dim=-1
         )
-        ref = torch.as_tensor(ref_arr, dtype=torch.float64, device=dev)
-        ok = torch.as_tensor(ref_ok, device=dev) & has_fg
+        ref = _upload(ref_arr, dev)
+        ok = _upload(ref_ok, dev) & has_fg
         delta = torch.round(centroid - ref).to(torch.int32)
         dx = torch.where(ok, delta[:, 0], 0).to(torch.int32)
         dy = torch.where(ok, delta[:, 1], 0).to(torch.int32)
@@ -345,14 +360,14 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference):
     return mask, sums, has_fg, torch.stack([dx, dy], dim=-1)
 
 
-def _defect_roi(seg_masks, params: DefectParams):
+def _defect_roi(seg_masks, params: DefectParams, err=None):
     """ROI: binarize, (2n+1)^2 erode, largest 8-CC (holes kept) -> (roi u8,
     stats [U, 8], int32 from kernel A, int64 on the whole-image route)
     (indexing_ui.py:1480-1516)."""
     tail = _whole_tail if _whole_route(*seg_masks.shape[1:]) else seg_tail
     return tail(
         seg_masks, stages=rect_erode_stages(params.erode_px), fill=False,
-        out_largest=True,
+        out_largest=True, err=err,
     )
 
 
@@ -375,7 +390,7 @@ def _candidates(crops, params: DefectParams, roi_stats):
     )
 
 
-def _defect_from_roi(crops, roi, roi_stats, params: DefectParams):
+def _defect_from_roi(crops, roi, roi_stats, params: DefectParams, err=None):
     """Defect pass given the ROI and its stats row ([U, 8]: area, ..., row
     bounds), from :func:`_defect_roi` or kernel K -> (masks u8, found bool,
     area int32, verdict bool) (indexing_ui.py:1519-1572, :1669-1700)."""
@@ -390,17 +405,17 @@ def _defect_from_roi(crops, roi, roi_stats, params: DefectParams):
     filt = _whole_blobs if _whole_route(*crops.shape[1:]) else blob_filter
     out, area = filt(
         _candidates(crops, params, roi_stats), (2 * max_area).contiguous(),
-        min_x2=2 * min_area, roi=roi, pre_open=params.method == "threshold",
+        min_x2=2 * min_area, roi=roi, pre_open=params.method == "threshold", err=err,
     )
     found = area > 0
     verdict = found & (area >= min_area)
     return out, found, area, verdict
 
 
-def _defect(crops, seg_masks, params: DefectParams):
+def _defect(crops, seg_masks, params: DefectParams, err=None):
     """Defect pass -> (masks u8, found bool, area int32, verdict bool)
     (indexing_ui.py:1471-1572, :1669-1700)."""
-    return _defect_from_roi(crops, *_defect_roi(seg_masks, params), params)
+    return _defect_from_roi(crops, *_defect_roi(seg_masks, params, err), params, err)
 
 
 # Read ONCE at import, as the JAX package reads it: set the variable before
@@ -418,7 +433,7 @@ def _seg_roi_chain_fits(crops_shape, seg: SegmentationParams) -> bool:
     return _ENABLE_CHAIN and seg.method == "otsu" and not _whole_route(*crops_shape[1:])
 
 
-def _segment_roi(crops, seg: SegmentationParams, exclusions, erode_px: int):
+def _segment_roi(crops, seg: SegmentationParams, exclusions, erode_px: int, err=None):
     """Reference-capture segmentation and the defect ROI chained in kernel K
     (the port of the JAX package's ``_segment_roi_device``): Gaussian, Otsu,
     then K with the exclusion zone rasterized once at zero shift. Returns
@@ -435,7 +450,7 @@ def _segment_roi(crops, seg: SegmentationParams, exclusions, erode_px: int):
         z = torch.zeros((1,), dtype=torch.int32, device=crops.device)
         zone = exclusion_zone((h, w), rects, circles, z, z)[0]
     mask, st, roi, roi_st = seg_roi_tail(
-        x, stages, rect_erode_stages(erode_px), otsu_threshold(x), zone
+        x, stages, rect_erode_stages(erode_px), otsu_threshold(x), zone, err=err
     )
     sums = torch.stack([st[:, 1], st[:, 2], st[:, 0]], dim=-1).to(torch.int64)
     shifts = torch.zeros((u, 2), dtype=torch.int32, device=crops.device)
@@ -444,21 +459,27 @@ def _segment_roi(crops, seg: SegmentationParams, exclusions, erode_px: int):
 
 def _inspect_image_device(image, origins, unit_hw, seg: SegmentationParams,
                           defect: DefectParams, exclusions=(), ref_centroids=None,
-                          is_reference: bool = True, with_defects: bool = True):
+                          is_reference: bool = True, with_defects: bool = True,
+                          err=None):
     """One capture's program, tensors in and device tensors out (no host
     copy of any result): image [H, W] uint8 and origins [U, 2] on the
     device -> (masks u8, sums [U, 3] int64, has_fg, shifts [U, 2] int32,
     (defect masks, found, area, verdict) or None without defects). The
     port of the JAX package's ``_inspect_image_device``; ``seg`` and
-    ``defect`` are validated by the caller."""
+    ``defect`` are validated by the caller. With ``err`` (a
+    :func:`tpu_inspect_torch.kernels.error_flag`) kernels A, C and K set it
+    instead of being read one by one, and the caller reads it where it
+    copies the results out: the program then waits for the card nowhere."""
     crops = gather_crops(image, origins, unit_hw)
     if with_defects and is_reference and _seg_roi_chain_fits(crops.shape, seg):
-        seg_out, (roi, roi_st) = _segment_roi(crops, seg, exclusions, int(defect.erode_px))
-        return seg_out + (_defect_from_roi(crops, roi, roi_st, defect),)
-    seg_out = _segment(crops, seg, exclusions, ref_centroids, is_reference)
+        seg_out, (roi, roi_st) = _segment_roi(
+            crops, seg, exclusions, int(defect.erode_px), err
+        )
+        return seg_out + (_defect_from_roi(crops, roi, roi_st, defect, err),)
+    seg_out = _segment(crops, seg, exclusions, ref_centroids, is_reference, err)
     if not with_defects:
         return seg_out + (None,)
-    return seg_out + (_defect(crops, seg_out[0], defect),)
+    return seg_out + (_defect(crops, seg_out[0], defect, err),)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -590,11 +611,13 @@ def inspect_image(image, grid: GridParams, seg: SegmentationParams,
     dev = resolve_device(device)
     origins = torch.from_numpy(grid_origins(grid)).to(dev)
     _, _, w, h = grid.base_unit
+    err = error_flag(dev)
     out = _inspect_image_device(
         _as_u8(image, dev), origins, (int(h), int(w)), seg.validated(),
         (defect or DefectParams()).validated(), exclusions, ref_centroids,
-        bool(is_reference), defect is not None,
+        bool(is_reference), defect is not None, err,
     )
+    build.check_bounded("inspect_image", err)
     if out[4] is None:
         return _seg_result(*out[:4]), None
     return _seg_result(*out[:4]), _insp_result(*out[4], areas_dtype=np.int64)

@@ -1,9 +1,10 @@
 """Grid-indexing and exclusion geometry (pure host-side integer math).
 
 Copy of :mod:`tpu_inspect.geometry`'s ``BoxGrid``, ``grid_boxes``,
-``grid_origins``, ``infer_grid_params`` and ``clamp_exclusion_to_base_unit``
-(indexing_ui.py:2171-2201, :1887-1946); the engine consumes the origins as
-a small int tensor.
+``grid_origins``, ``infer_grid_params``, ``clamp_exclusion_to_base_unit``
+and ``exclusion_mask`` (indexing_ui.py:2171-2201, :1887-1946, :2316-2338);
+the engine consumes the origins as a small int tensor, the oracle copy
+(:mod:`tpu_inspect_torch.oracle`) the exclusion mask.
 """
 
 from __future__ import annotations
@@ -146,4 +147,39 @@ def clamp_exclusion_to_base_unit(excl: dict, bw: int, bh: int) -> dict:
         r = max(1, r)
         r = min(r, max(1, cx), max(1, cy), max(1, bw - cx - 1), max(1, bh - cy - 1))
         out.update(cx=cx, cy=cy, r=r)
+    return out
+
+
+def exclusion_mask(
+    exclusions, h: int, w: int, dx: int = 0, dy: int = 0
+) -> np.ndarray:
+    """Rasterize exclusions into a boolean keep-out mask of shape [h, w].
+
+    True where the segmentation mask must be zeroed. Semantics match the
+    apply loop in run_segmentation_all (indexing_ui.py:2316-2338): rect
+    bounds are shifted by (dx, dy) then clamped to the unit; circles use the
+    integer-center disc test ``(xx-cx)^2 + (yy-cy)^2 <= r^2`` with no clamp.
+    Malformed entries are skipped (the reference swallows their exceptions).
+    """
+    out = np.zeros((h, w), dtype=bool)
+    yy, xx = np.ogrid[:h, :w]
+    for excl in exclusions or ():
+        try:
+            if excl.get("shape") == "rect":
+                ex = int(excl.get("x", 0)) + dx
+                ey = int(excl.get("y", 0)) + dy
+                ew = int(excl.get("w", 0))
+                eh = int(excl.get("h", 0))
+                x0, y0 = max(0, ex), max(0, ey)
+                x1, y1 = min(w, ex + ew), min(h, ey + eh)
+                if x1 > x0 and y1 > y0:
+                    out[y0:y1, x0:x1] = True
+            else:
+                cx = int(excl.get("cx", 0)) + dx
+                cy = int(excl.get("cy", 0)) + dy
+                r = int(excl.get("r", 0))
+                if r > 0:
+                    out |= (xx - cx) ** 2 + (yy - cy) ** 2 <= r * r
+        except (AttributeError, TypeError, ValueError, OverflowError):
+            continue
     return out

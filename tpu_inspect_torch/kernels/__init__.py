@@ -13,13 +13,22 @@ import torch
 LAUNCHES: dict[str, int] = {
     "seg_tail": 0, "median_residual": 0, "blob_filter": 0, "propagate": 0, "label": 0,
     "cc_stats": 0, "blob_select": 0, "median_blur": 0, "morph": 0, "label_stats": 0,
-    "seg_roi_tail": 0, "median_probe": 0,
+    "seg_roi_tail": 0, "median_probe": 0, "otsu": 0,
 }
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def error_flag(device) -> torch.Tensor:
+    """A zeroed [1] int32 device flag for kernels that check a bound: they
+    set it instead of returning a wrong plane. Pass one flag to several
+    launches and read it once where the results are copied out anyway
+    (:func:`tpu_inspect_torch.kernels.build.check_bounded`); a wrapper given
+    none makes its own and reads it right after its launch."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
 
 
 def check_planes(x: torch.Tensor, name: str) -> None:

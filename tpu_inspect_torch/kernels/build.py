@@ -13,7 +13,8 @@ one link::
 hash of the sources, so an edited source rebuilds and an unchanged one
 loads the cached library. The library is loaded with :mod:`ctypes`; every
 pointer and the stream are ``c_void_p`` (an undeclared argtype would pass a
-32-bit int and cut the pointer), every size ``c_int``, and every entry
+32-bit int and cut the pointer), every size ``c_int`` (``c_longlong`` for a
+count that may pass 2^31), and every entry
 returns ``cudaGetLastError()`` as an int, which :func:`check` turns into an
 exception.
 """
@@ -34,16 +35,17 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # entry name -> argtypes (all return int: the cudaError_t of the launch)
 _SIGNATURES = {
-    # x, thr, prog, out, stats, planes, blocks, U, H, W, has_thr, fill,
-    # out_largest, stream
-    "tik_seg_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, thr, prog, out, stats, scratch, scratch words, err, U, H, W,
+    # has_thr, fill, out_largest, stream
+    "tik_seg_tail": (_P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, row_lo, row_hi, out, U, H, W, k, thr, stream
     "tik_median_residual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # fg, roi, max_x2, table, prog, out, area, planes, blocks, U, H, W,
-    # min_x2, has_roi, stream
-    "tik_blob_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # fg, roi, max_x2, table, prog, out, area, scratch, scratch words, err,
+    # U, H, W, min_x2, has_roi, stream
+    "tik_blob_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _P),
     # seed, domain, out, parent, flags, err, U, H, W, conn8, border_seed, stream
     "tik_propagate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # fg, out, parent, err, U, H, W, stream
@@ -60,10 +62,14 @@ _SIGNATURES = {
     # fg, mask, stats, scratch, err, U, H, W, stream
     "tik_label_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, thr, prog, roi_prog, zone, seg_out, seg_stats, roi_out, roi_stats,
-    # planes, blocks, U, H, W, stream
-    "tik_seg_roi_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # scratch, scratch words, err, U, H, W, stream
+    "tik_seg_roi_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _P),
     # x, row_lo, row_hi, out, U, H, W, k, thr, mode, tile_w, tile_h, stream
     "tik_median_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, hist, U, H*W, stream
+    "tik_histogram": (_P, _P, _I, _L, _P),
+    # hist, thr, U, scale, stream
+    "tik_otsu_scan": (_P, _P, _I, ctypes.c_double, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -23,7 +23,13 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes, check_vector
+from tpu_inspect_torch.kernels import (
+    LAUNCHES,
+    build,
+    check_planes,
+    check_vector,
+    error_flag,
+)
 from tpu_inspect_torch.ops.blob_select import blob_select_plain, contour_table
 from tpu_inspect_torch.ops.cc import label_components_plain
 from tpu_inspect_torch.ops.hole_fill import exterior_background_plain
@@ -63,13 +69,23 @@ def blob_filter_fits(h: int, w: int) -> bool:
     return (h + 1) * (w + 1) * (h + w + 2) < 2**31
 
 
-def blob_filter(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
+def blob_unit_words(h: int, w: int) -> int:
+    """32-bit words of one unit's planes in kernel C
+    (``csrc/blob_filter.cu: blob_unit_words``): two bit planes and a region
+    holding five scratch planes, later the two labelings' parents. The
+    launcher keeps them in shared memory where they fit and in the global
+    scratch the wrapper allocates otherwise."""
+    n = h * ((w + 31) // 32)
+    return 2 * n + max(2 * ((h + 1) // 2) * ((w + 1) // 2), 5 * n)
+
+
+def blob_filter(fg, max_x2, *, min_x2: int, roi=None, pre_open=False, err=None):
     """fg [U, H, W] uint8 candidate plane, max_x2 [U] int32 ->
     (kept filled mask [U, H, W] uint8 0/255, pixel area [U] int32).
 
     ``roi`` ([U, H, W] uint8, any >0 inside) ANDs the candidate with the
     ROI and ``pre_open`` applies the 3x3-ellipse open first (the defect
-    path's form)."""
+    path's form). ``err`` as for :func:`tpu_inspect_torch.ops.fused.seg_tail`."""
     check_planes(fg, "blob_filter")
     u, h, w = fg.shape
     if roi is not None:
@@ -81,20 +97,22 @@ def blob_filter(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):
         return blob_filter_plain(fg, max_x2, min_x2=min_x2, roi=roi, pre_open=pre_open)
     if not blob_filter_fits(h, w):
         raise ValueError(f"blob_filter: unit {h}x{w} too large for int32 sums")
-    nb = ((h + 1) // 2) * ((w + 1) // 2)
     out = torch.empty_like(fg)
     area = torch.empty((u,), dtype=torch.int32, device=fg.device)
-    planes = torch.empty(u * (3 * h * w + nb), dtype=torch.uint8, device=fg.device)
-    blocks = torch.empty(u * 5 * nb, dtype=torch.int32, device=fg.device)
+    words = u * blob_unit_words(h, w)
+    scratch = torch.empty((words,), dtype=torch.int32, device=fg.device)
+    flag = error_flag(fg.device) if err is None else err
     stages = open_stages(3) if pre_open else ()
     prog = stage_program_tensor(stages, str(fg.device))
-    err = build.lib().tik_blob_filter(
+    code = build.lib().tik_blob_filter(
         fg.data_ptr(), None if roi is None else roi.data_ptr(), max_x2.data_ptr(),
         contour_table(str(fg.device)).data_ptr(), prog.data_ptr(), out.data_ptr(),
-        area.data_ptr(), planes.data_ptr(), blocks.data_ptr(), u, h, w,
+        area.data_ptr(), scratch.data_ptr(), words, flag.data_ptr(), u, h, w,
         int(min_x2), int(roi is not None),
         torch.cuda.current_stream(fg.device).cuda_stream,
     )
-    build.check("blob_filter", err)
+    build.check("blob_filter", code)
     LAUNCHES["blob_filter"] += 1
+    if err is None:
+        build.check_bounded("blob_filter", flag)
     return out, area

@@ -26,7 +26,13 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes, check_vector
+from tpu_inspect_torch.kernels import (
+    LAUNCHES,
+    build,
+    check_planes,
+    check_vector,
+    error_flag,
+)
 from tpu_inspect_torch.ops.cc import largest_component
 from tpu_inspect_torch.ops.hole_fill import exterior_background_plain
 from tpu_inspect_torch.ops.morphology import apply_stages, stage_program_tensor
@@ -52,6 +58,14 @@ def seg_tail_fits(h: int, w: int) -> bool:
     return max(h, w) * h * w < 2**31
 
 
+def tail_unit_words(h: int, w: int) -> int:
+    """32-bit words of one unit's planes in kernels A and K
+    (``csrc/tail.cuh: tail_unit_words``): five bit planes and the 2x2 block
+    grid's parents. The launcher keeps them in shared memory where they fit
+    and in the global scratch the wrapper allocates otherwise."""
+    return 5 * h * ((w + 31) // 32) + ((h + 1) // 2) * ((w + 1) // 2)
+
+
 def seg_tail_plain(x, stages=(), fill=False, out_largest=False, thr=None):
     """The plain PyTorch version of :func:`seg_tail` (same contract); it
     launches no kernel."""
@@ -63,9 +77,14 @@ def seg_tail_plain(x, stages=(), fill=False, out_largest=False, thr=None):
     return out.to(torch.uint8) * 255, stats.to(torch.int32)
 
 
-def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None):
+def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None, err=None):
     """x [U, H, W] uint8 (gray with ``thr`` [U] int32, else any >0 = fg) ->
-    (mask [U, H, W] uint8 0/255, stats [U, 8] int32)."""
+    (mask [U, H, W] uint8 0/255, stats [U, 8] int32).
+
+    ``err`` (CUDA only): a :func:`tpu_inspect_torch.kernels.error_flag` the
+    kernel sets if a union-find walk passes its bound, read by the caller
+    where it copies results out; without one the wrapper reads its own
+    right after the launch."""
     check_planes(x, "seg_tail")
     u, h, w = x.shape
     if thr is not None:
@@ -74,20 +93,22 @@ def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None):
         return seg_tail_plain(x, stages, fill, out_largest, thr)
     if not seg_tail_fits(h, w):
         raise ValueError(f"seg_tail: unit {h}x{w} too large for int32 sums")
-    nb = ((h + 1) // 2) * ((w + 1) // 2)
     out = torch.empty_like(x)
     stats = torch.empty((u, 8), dtype=torch.int32, device=x.device)
-    planes = torch.empty(u * (3 * h * w + nb), dtype=torch.uint8, device=x.device)
-    blocks = torch.empty(u * 2 * nb, dtype=torch.int32, device=x.device)
+    words = u * tail_unit_words(h, w)
+    scratch = torch.empty((words,), dtype=torch.int32, device=x.device)
+    flag = error_flag(x.device) if err is None else err
     prog = stage_program_tensor(tuple(stages), str(x.device))
-    err = build.lib().tik_seg_tail(
+    code = build.lib().tik_seg_tail(
         x.data_ptr(), None if thr is None else thr.data_ptr(), prog.data_ptr(),
-        out.data_ptr(), stats.data_ptr(), planes.data_ptr(), blocks.data_ptr(),
+        out.data_ptr(), stats.data_ptr(), scratch.data_ptr(), words, flag.data_ptr(),
         u, h, w, int(thr is not None), int(bool(fill)), int(bool(out_largest)),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check("seg_tail", err)
+    build.check("seg_tail", code)
     LAUNCHES["seg_tail"] += 1
+    if err is None:
+        build.check_bounded("seg_tail", flag)
     return out, stats
 
 
@@ -102,7 +123,7 @@ def seg_roi_tail_plain(x, stages, roi_stages, thr, zone=None):
     return mask, stats, roi, roi_stats
 
 
-def seg_roi_tail(x, stages, roi_stages, thr, zone=None):
+def seg_roi_tail(x, stages, roi_stages, thr, zone=None, err=None):
     """The chained seg tail + shared exclusion zone + ROI tail of the
     reference capture.
 
@@ -114,7 +135,8 @@ def seg_roi_tail(x, stages, roi_stages, thr, zone=None):
     mask [U, H, W] uint8 0/255 (the largest 8-CC of the eroded post-zone
     mask), ROI stats [U, 8] int32), the rows in :data:`STAT_FIELDS` order.
     The JAX function's 12 outputs are seg mask, seg stats[:, :4] (has_fg as
-    bool), ROI mask, ROI stats[:, 0], [:, 3] (bool) and [:, 4:8]."""
+    bool), ROI mask, ROI stats[:, 0], [:, 3] (bool) and [:, 4:8]. ``err``
+    as for :func:`seg_tail`."""
     check_planes(x, "seg_roi_tail")
     u, h, w = x.shape
     check_vector(thr, "seg_roi_tail thr", u, x.device)
@@ -131,20 +153,22 @@ def seg_roi_tail(x, stages, roi_stages, thr, zone=None):
         return seg_roi_tail_plain(x, stages, roi_stages, thr, zone)
     if not seg_tail_fits(h, w):
         raise ValueError(f"seg_roi_tail: unit {h}x{w} too large for int32 sums")
-    nb = ((h + 1) // 2) * ((w + 1) // 2)
     mask, roi = torch.empty_like(x), torch.empty_like(x)
     stats = torch.empty((u, 8), dtype=torch.int32, device=x.device)
     roi_stats = torch.empty((u, 8), dtype=torch.int32, device=x.device)
-    planes = torch.empty(u * (3 * h * w + nb), dtype=torch.uint8, device=x.device)
-    blocks = torch.empty(u * 2 * nb, dtype=torch.int32, device=x.device)
+    words = u * tail_unit_words(h, w)
+    scratch = torch.empty((words,), dtype=torch.int32, device=x.device)
+    flag = error_flag(x.device) if err is None else err
     prog = stage_program_tensor(tuple(stages), str(x.device))
     roi_prog = stage_program_tensor(tuple(roi_stages), str(x.device))
-    err = build.lib().tik_seg_roi_tail(
+    code = build.lib().tik_seg_roi_tail(
         x.data_ptr(), thr.data_ptr(), prog.data_ptr(), roi_prog.data_ptr(),
         None if zone is None else zone.data_ptr(), mask.data_ptr(), stats.data_ptr(),
-        roi.data_ptr(), roi_stats.data_ptr(), planes.data_ptr(), blocks.data_ptr(),
+        roi.data_ptr(), roi_stats.data_ptr(), scratch.data_ptr(), words, flag.data_ptr(),
         u, h, w, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check("seg_roi_tail", err)
+    build.check("seg_roi_tail", code)
     LAUNCHES["seg_roi_tail"] += 1
+    if err is None:
+        build.check_bounded("seg_roi_tail", flag)
     return mask, stats, roi, roi_stats

@@ -10,6 +10,8 @@ float conv would run in TF32 on the card).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -39,8 +41,11 @@ def fixed_gaussian_kernel(k: int, sigma: float = 0.0) -> np.ndarray:
     return np.diff(np.concatenate([[0.0], np.rint(cum)])).astype(np.int64)
 
 
-def _reflect101_index(n: int, pad: int, device) -> torch.Tensor:
-    """Indices of a BORDER_REFLECT_101 padded axis (numpy's 'reflect')."""
+@functools.lru_cache(maxsize=32)
+def _reflect101_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
+    """Indices of a BORDER_REFLECT_101 padded axis (numpy's 'reflect'),
+    kept per device, so a call on the card uploads them once and does not
+    wait for the copy again."""
     idx = np.pad(np.arange(n), pad, mode="reflect")
     return torch.as_tensor(idx, dtype=torch.int64, device=device)
 

@@ -79,12 +79,21 @@ def _runs_tuple(se: np.ndarray):
 @functools.lru_cache(maxsize=32)
 def close_open_stages(k: int):
     """morph_close then morph_open with the k x k ellipse B, as the three
-    stages dilate(B), erode(B (+) B), dilate(B)."""
+    stages dilate(B), erode(B (+) B), dilate(B) where that is exact, else as
+    the four stages dilate(B), erode(B), erode(B), dilate(B).
+
+    :func:`minkowski_sum` centres B (+) B on B's centre, which is B's
+    anchor only when B is symmetric about it: every odd k, no even k (the
+    anchor k//2 is off centre). For k = 2 and 4 the three stages differ
+    from cv2's close then open; the four equal it for every k."""
     se = ellipse_se(k)
+    runs = _runs_tuple(se)
+    if set(runs) != {(-dy, -hi, -lo) for dy, lo, hi in runs}:
+        return (("dilate", runs), ("erode", runs), ("erode", runs), ("dilate", runs))
     return (
-        ("dilate", _runs_tuple(se)),
+        ("dilate", runs),
         ("erode", _runs_tuple(minkowski_sum(se, se))),
-        ("dilate", _runs_tuple(se)),
+        ("dilate", runs),
     )
 
 

@@ -5,35 +5,39 @@ scan replicates OpenCV's getThreshVal_Otsu_8u recurrence exactly in
 ``torch.float64`` (epsilon guards that *skip* the normalisation, strict
 ``>`` keeping the first maximum); it is sequential over the 256 bins and
 vectorised over units only — a cumsum would round differently.
+
+:func:`histogram_u8` and :func:`otsu_threshold_from_hist` launch
+``csrc/otsu.cu`` for CUDA tensors (the histogram kernel, the scan kernel;
+the threshold stays on the device, no host copy) and run their plain
+versions, :func:`histogram_u8_plain` and
+:func:`otsu_threshold_from_hist_plain`, for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes
 from tpu_inspect_torch.ops.gaussian import adaptive_gaussian_mean
 
 _FLT_EPSILON = 1.1920928955078125e-07  # FLT_EPSILON, as used by OpenCV
 
 
-def histogram_u8(x: torch.Tensor) -> torch.Tensor:
-    """Per-unit 256-bin histogram. x: [U, H, W] uint8 -> [U, 256] int64.
-
-    One integer bincount over ``unit*256 + value`` (exact on any device)."""
+def histogram_u8_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`histogram_u8`: one integer
+    bincount over ``unit*256 + value`` (exact on any device; on a CUDA
+    tensor bincount reads the input's maximum back to size its output)."""
     u = x.shape[0]
     flat = x.reshape(u, -1).to(torch.int64)
     flat = flat + 256 * torch.arange(u, device=x.device, dtype=torch.int64)[:, None]
     return torch.bincount(flat.reshape(-1), minlength=256 * u).reshape(u, 256)
 
 
-def otsu_threshold_from_hist(hist: torch.Tensor, n: int) -> torch.Tensor:
-    """getThreshVal_Otsu_8u from [U, 256] integer counts summing to ``n``.
-
-    Returns [U] int32 thresholds on the histogram's device. The 256-step
-    recurrence runs on a host copy of the histogram: each step is a dozen
-    element-wise ops on [U] values, which on the card would be ~3000 tiny
-    kernel launches, while the copy is one [U, 256] transfer.
-    """
+def otsu_threshold_from_hist_plain(hist: torch.Tensor, n: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`otsu_threshold_from_hist`: the
+    256-step recurrence as float64 torch ops on a host copy of the
+    histogram (each step a dozen element-wise ops on [U] values); the
+    result goes back to the histogram's device."""
     dev = hist.device
     h = hist.to(device="cpu", dtype=torch.float64)
     f64 = dict(dtype=torch.float64)
@@ -68,9 +72,57 @@ def otsu_threshold_from_hist(hist: torch.Tensor, n: int) -> torch.Tensor:
     return max_val.to(dev)
 
 
+def histogram_u8(x: torch.Tensor) -> torch.Tensor:
+    """Per-unit 256-bin histogram. x: [U, H, W] uint8 -> [U, 256] int64."""
+    if x.device.type == "cpu":
+        return histogram_u8_plain(x)
+    check_planes(x, "histogram_u8")
+    u, h, w = x.shape
+    hist = torch.zeros((u, 256), dtype=torch.int64, device=x.device)
+    code = build.lib().tik_histogram(
+        x.data_ptr(), hist.data_ptr(), u, h * w, torch.cuda.current_stream(x.device).cuda_stream
+    )
+    build.check("histogram_u8", code)
+    LAUNCHES["otsu"] += 1
+    return hist
+
+
+def otsu_threshold_from_hist(hist: torch.Tensor, n: int) -> torch.Tensor:
+    """getThreshVal_Otsu_8u from [U, 256] int64 counts summing to ``n``.
+
+    Returns [U] int32 thresholds on the histogram's device: the scan kernel
+    for a CUDA histogram (one CTA a unit, one thread running the same double
+    operations in the same order), :func:`otsu_threshold_from_hist_plain`
+    for a CPU one."""
+    if hist.device.type == "cpu":
+        return otsu_threshold_from_hist_plain(hist, n)
+    if hist.dtype != torch.int64 or hist.ndim != 2 or hist.shape[1] != 256 or not (
+            hist.is_contiguous()):
+        raise ValueError(
+            f"otsu_threshold_from_hist: expected a contiguous [U, 256] int64 tensor, got "
+            f"{hist.dtype} {tuple(hist.shape)}"
+        )
+    u = hist.shape[0]
+    thr = torch.empty((u,), dtype=torch.int32, device=hist.device)
+    code = build.lib().tik_otsu_scan(
+        hist.data_ptr(), thr.data_ptr(), u, 1.0 / float(n),
+        torch.cuda.current_stream(hist.device).cuda_stream,
+    )
+    build.check("otsu_threshold_from_hist", code)
+    LAUNCHES["otsu"] += 1
+    return thr
+
+
 def otsu_threshold(x: torch.Tensor) -> torch.Tensor:
-    """Per-unit Otsu threshold. x: [U, H, W] uint8 -> [U] int32."""
+    """Per-unit Otsu threshold. x: [U, H, W] uint8 -> [U] int32 on x's
+    device (two launches of ``csrc/otsu.cu`` for a CUDA tensor)."""
     return otsu_threshold_from_hist(histogram_u8(x), x.shape[-2] * x.shape[-1])
+
+
+def otsu_threshold_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`otsu_threshold` (on any device;
+    it launches no kernel)."""
+    return otsu_threshold_from_hist_plain(histogram_u8_plain(x), x.shape[-2] * x.shape[-1])
 
 
 def threshold_binary_inv(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParam
 from tpu_inspect_torch.device import resolve_device
 from tpu_inspect_torch.engine import _inspect_image_device, ref_centroid_arrays
 from tpu_inspect_torch.geometry import grid_origins
+from tpu_inspect_torch.kernels import build, error_flag
 
 
 @dataclass
@@ -105,13 +106,16 @@ def stream_inspect(
     upload = _Uploader(dev, prefetch + 1)
 
     def dispatch(image):
+        err = error_flag(dev)
         masks, _, _, _, (dmasks, found, area, verdict) = _inspect_image_device(
             upload(image), origins, unit_hw, seg, defect, exclusions,
-            None if is_reference else ref_centroids, is_reference, True,
+            None if is_reference else ref_centroids, is_reference, True, err,
         )
-        return (verdict, area, found) + ((masks, dmasks) if fetch_masks else ())
+        return (err, verdict, area, found) + ((masks, dmasks) if fetch_masks else ())
 
     def collect(i, out):
+        build.check_bounded(f"stream_inspect frame {i}", out[0])
+        out = out[1:]
         verdict, area, found = (t.cpu().numpy() for t in out[:3])
         res = StreamResult(
             index=i,
