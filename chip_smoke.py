@@ -31,10 +31,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whole plane; kernels A and K at erode_px 200 and A, C and K on units too
    large for their shared-memory layout (the global-scratch variant);
    seeded random planes of odd sizes with an empty and a full unit, and a
-   long 1-px serpentine; then the ``cuda``-marked tests of the Otsu kernel
-   and of the redesigned A, K and C (``tests/test_torch_otsu.py``,
-   ``tests/test_torch_cuda.py``: word-edge widths, staircases, spirals,
-   real Canny edges) in one pytest subprocess;
+   long 1-px serpentine; then the ``cuda``-marked tests of the Otsu kernel,
+   of the redesigned A, K and C and of the redesigned D and E
+   (``tests/test_torch_otsu.py``, ``tests/test_torch_cuda.py``,
+   ``tests/test_torch_uf.py``: word-edge widths, tile seams and corners,
+   staircases, spirals, serpentines, solid planes, real Canny edges) in one
+   pytest subprocess;
 4. every path on the card, each driven with the launch counts set to 0 just
    before it and read just after, and held field by field against the same
    engine on ``device="cpu"``: ``engine.inspect_image`` for the four
@@ -67,9 +69,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and, after a warm-up call, one capture's default program
    (``engine._inspect_image_device``: the reference capture, otsu/threshold,
    the exclusions) dispatched under ``torch.cuda.set_sync_debug_mode("error")``:
-   nothing in it waits for the card;
+   nothing in it waits for the card; and the same for the whole-image
+   route's seg and defect passes on one resident 1x3000x4096 unit;
 5. times on the card: each kernel vs its plain version (CUDA events, median
-   of repeated runs at the paths' shapes, the whole planes included) beside
+   of repeated runs at the paths' shapes, the whole planes included; the
+   kernels with a bound flag share one, read after the timings) beside
    its bound (the bytes the call must move at 3.35 TB/s), each combo's
    ``inspect_image`` steady-state wall ms/image (host image in, host
    results out), the walls of ``segment_units`` and ``inspect_units`` on one
@@ -657,22 +661,26 @@ def main() -> int:
             fail(f"median_probe: no plain version of the {mode} ablation")
         return median_residual_mask_plain(x_, k_, thr_, lo, hi)
 
-    # kernels A, C and K set one bound flag, read after the comparisons and
-    # after the timings (a wrapper given none would wait for its own flag
-    # inside every timed call)
+    # every kernel with a bound (A, C, K, D, E, F, G) sets one flag, read
+    # after the comparisons and after the timings (a wrapper given none
+    # would wait for its own flag inside every timed call)
     bound_flag = error_flag(dev)
+
+    def flagged(fn):
+        return functools.partial(fn, err=bound_flag)
+
     kernel_fns = {
-        "seg_tail": (functools.partial(seg_tail, err=bound_flag), seg_tail_plain),
+        "seg_tail": (flagged(seg_tail), seg_tail_plain),
         "median_residual": (median_residual_mask, median_residual_mask_plain),
-        "blob_filter": (functools.partial(blob_filter, err=bound_flag), blob_filter_plain),
-        "propagate": (propagate, propagate_plain),
-        "label": (label_components, label_components_plain),
-        "cc_stats": (component_stats, component_stats_plain),
-        "blob_select": (blob_select, blob_select_plain),
+        "blob_filter": (flagged(blob_filter), blob_filter_plain),
+        "propagate": (flagged(propagate), propagate_plain),
+        "label": (flagged(label_components), label_components_plain),
+        "cc_stats": (flagged(component_stats), component_stats_plain),
+        "blob_select": (flagged(blob_select), blob_select_plain),
         "median_blur": (median_blur_u8, median_blur_u8_plain),
         "morph": (morph_chain, apply_stages),
         "label_stats": (largest_component_sums, largest_component),
-        "seg_roi_tail": (functools.partial(seg_roi_tail, err=bound_flag), seg_roi_tail_plain),
+        "seg_roi_tail": (flagged(seg_roi_tail), seg_roi_tail_plain),
         "median_probe": (median_probe.probe, probe_plain),
         "otsu": (otsu_threshold, otsu_threshold_plain),
     }
@@ -797,13 +805,15 @@ def main() -> int:
         f"propagate ({d_ms:.2f} ms wall) vs plain ({p_ms:.1f} ms wall, a round per "
         f"pixel) and label")
     build.check_bounded("phase 3", bound_flag)
-    # the cuda-marked tests of the Otsu kernel and of the redesigned A, K and
-    # C (word-edge widths, staircases, spirals, erode 200, real Canny edges,
-    # the global-scratch variant) and the sync check, each against its plain
+    # the cuda-marked tests of the Otsu kernel, of the redesigned A, K and C
+    # (word-edge widths, staircases, spirals, erode 200, real Canny edges,
+    # the global-scratch variant) and of the redesigned D and E (tile seams
+    # and corners, word-edge widths, H = 1, solid planes, a U = 3 batch, a
+    # spiral and a serpentine), and the sync checks, each against its plain
     # version; the file's other tests repeat this script's own checks
     mark("phase 3: the cuda-marked tests start")
-    tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py"]
-    selected = "otsu or tails_ or roi_erode or canny_form or waits_nowhere"
+    tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py"]
+    selected = "otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_"
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
          "--noconftest", "-p", "no:cacheprovider"],
@@ -994,6 +1004,37 @@ def main() -> int:
             f"({cpu_s:.1f} s on the CPU): centroid {s_res.centroids.tolist()}"
             f"{ng}, launches {launches}")
     ref_cent = s_res.centroid_dict()
+    whole_cpu = ref  # WHOLE_HOME's CPU run
+
+    # the whole-image route waits for the card nowhere either: after a
+    # warm-up, one resident 1x3000x4096 unit's seg pass then defect pass
+    # (kernels D, E, F and G setting one bound flag) under the sync debug
+    # mode "error", the flag read after
+    whole_dev = torch.from_numpy(whole_np).to(dev)
+
+    def whole_program(err):
+        m = engine._segment(whole_dev, sp0, excl, None, True, err)[0]
+        return engine._defect(whole_dev, m, dp0, err)
+
+    whole_program(error_flag(dev))
+    torch.cuda.synchronize()
+    flag = error_flag(dev)
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = whole_program(flag)
+    except RuntimeError as e:
+        fail(f"sync check (whole image): the route waited for the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    build.check_bounded("sync check (whole image)", flag)
+    route_launches("whole sync check", dict(LAUNCHES), def_kernels["threshold"])
+    if (out[2].cpu().numpy().tolist() != whole_cpu[1].areas.tolist()
+            or not np.array_equal(out[0].cpu().numpy(), whole_cpu[1].defect_masks)):
+        fail("sync check (whole image): the defect masks or areas differ from the CPU run")
+    say(f"phase 4: whole-image seg + defect pass on a resident 1x3000x4096 unit dispatched "
+        f"under set_sync_debug_mode('error') without a wait: area {out[2].tolist()}, "
+        f"launches {dict(LAUNCHES)}")
     path = "whole inspect_units otsu/threshold shifted"
     shifted_np = shifted_img[None]
     reset_launches()

@@ -529,7 +529,9 @@ def test_inspect_image_device_waits_nowhere(cuda):
     """After one warm-up call, one capture's default program (reference
     capture, otsu/threshold, exclusions) dispatches under
     torch.cuda.set_sync_debug_mode("error"): no call in it waits for the
-    card (the bound flag is read after, where results are copied out)."""
+    card (the bound flag is read after, where results are copied out). The
+    same for the whole-image route: the seg pass then the defect pass of
+    one resident 1x3000x4096 unit (kernels D, E, F and G on one flag)."""
     wl = standard_workload()
     image = torch.from_numpy(wl["image"]).to(cuda)
     origins = torch.from_numpy(wl["origins"]).to(cuda)
@@ -539,13 +541,26 @@ def test_inspect_image_device_waits_nowhere(cuda):
         return teng._inspect_image_device(image, origins, wl["unit_hw"], seg, dp,
                                           wl["exclusions"], None, True, True, err)
 
-    run(error_flag(cuda))
-    torch.cuda.synchronize()
-    err = error_flag(cuda)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = run(err)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    build.check_bounded("inspect_image", err)
-    assert int(out[4][3].sum()) == 8, "NG 8/48 on the reference capture"
+    def run_whole(err):
+        whole = image[None]
+        m = teng._segment(whole, seg, wl["exclusions"], None, True, err)[0]
+        return teng._defect(whole, m, dp, err)
+
+    for program in (run, run_whole):
+        program(error_flag(cuda))
+        torch.cuda.synchronize()
+        err = error_flag(cuda)
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = program(err)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        build.check_bounded("inspect_image", err)
+        if program is run:
+            assert int(out[4][3].sum()) == 8, "NG 8/48 on the reference capture"
+        else:
+            assert LAUNCHES["label"] == 3 and LAUNCHES["propagate"] == 3
+            ref = teng.inspect_units(wl["image"][None], seg, dp, wl["exclusions"], device=cuda)[1]
+            assert int(out[2][0]) == int(ref.areas[0])
+            assert np.array_equal(out[0].cpu().numpy(), ref.defect_masks)

@@ -6,11 +6,15 @@ on its CPU backend, so its XLA fallbacks run) on a small 2x2 grid: a
 reference capture, then a shifted capture aligned to the reference's
 anchors, with one rect and one circle exclusion, for all four
 otsu/adaptive x threshold/canny method combos. Every field is compared
-with exact equality, dtypes included.
+with exact equality, dtypes included. ``engine.raw_segment`` and
+``engine.defect_roi`` are held against the JAX functions of the same names
+on a few 64x64 units (kernel A's route) and on one 96x128 unit with the
+whole-image gate lowered (kernels D, E and F).
 """
 
 import numpy as np
 import pytest
+import torch
 
 import tpu_inspect.config as jcfg
 from tpu_inspect import engine as jeng
@@ -131,3 +135,44 @@ def test_unported_methods_raise(captures):
                        tcfg.DefectParams(method="canny", median_k=47), device="cpu")
     seg_only, none = teng.inspect_image(img, grid, tcfg.SegmentationParams(), device="cpu")
     assert none is None and seg_only.masks.shape == (1, 20, 20)
+
+
+# raw_segment and defect_roi on a few 64x64 units (kernel A's route), and
+# on one 96x128 unit with the whole-image gate lowered (kernels D, E, F)
+RAW_GRID = tcfg.GridParams(base_unit=(3, 4, 64, 64), units_x=2, units_y=2)
+WHOLE_GRID = tcfg.GridParams(base_unit=(6, 5, 128, 96))
+
+
+def _raw_crops(route, monkeypatch):
+    if route == "whole":
+        monkeypatch.setattr(teng, "WHOLE_MIN_PX", 1000)
+        grid, hw = WHOLE_GRID, (108, 142)
+    else:
+        grid, hw = RAW_GRID, (140, 140)
+    crops = crop_units(make_mold_image(grid, hw, seed=5, defect_rate=1.0), _j(grid))
+    assert teng._whole_route(*crops.shape[1:]) == (route == "whole")
+    return crops, torch.from_numpy(np.ascontiguousarray(crops))
+
+
+@pytest.mark.parametrize("route", ["units", "whole"])
+@pytest.mark.parametrize("method", ["otsu", "adaptive"])
+def test_raw_segment_matches_jax(route, method, monkeypatch):
+    crops, crops_t = _raw_crops(route, monkeypatch)
+    seg = tcfg.SegmentationParams(method=method)
+    got = teng.raw_segment(crops_t, seg).numpy()
+    ref = np.asarray(jeng.raw_segment(crops, _j(seg).validated()))
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("route", ["units", "whole"])
+@pytest.mark.parametrize("erode_px", [0, 6])
+def test_defect_roi_matches_jax(route, erode_px, monkeypatch):
+    crops, crops_t = _raw_crops(route, monkeypatch)
+    masks = teng.raw_segment(crops_t, tcfg.SegmentationParams())
+    roi, empty = teng.defect_roi(masks, erode_px)
+    j_roi, j_empty = jeng.defect_roi(masks.numpy(), erode_px)
+    assert roi.dtype == torch.bool and empty.dtype == torch.bool
+    np.testing.assert_array_equal(roi.numpy(), np.asarray(j_roi))
+    np.testing.assert_array_equal(empty.numpy(), np.asarray(j_empty))
+    assert roi.numpy().any()

@@ -1,0 +1,26 @@
+"""The kernel rig ``tpu_inspect_torch.tools.kernel_bench`` on the CPU, at
+its small size: every form of kernels D and E builds its planes through
+the port's engine, equals its plain version exactly and gets a time (a
+host wall here, labelled so; device times come from the card)."""
+
+import json
+
+import pytest
+
+from tpu_inspect_torch.tools import kernel_bench
+
+
+def test_kernel_bench_small_cpu(capsys):
+    rows = kernel_bench.main(["--device", "cpu", "--small", "--n", "1", "--reps", "1"])
+    assert [r["form"] for r in rows] == list(kernel_bench.FORMS)
+    for r in rows:
+        assert r["max_abs_err"] == 0 and r["where"] == "cpu (host wall)"
+        assert r["ms"] > 0 and r["plain_ms"] > 0 and r["bound_ms"] > 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == rows
+    assert {tuple(r["shape"]) for r in rows} == {(4, 64, 64), (1, 64, 64), (1, 96, 128)}
+
+
+def test_kernel_bench_rejects_unknown_form():
+    with pytest.raises(ValueError, match="unknown forms"):
+        kernel_bench.bench(("no such form",), device="cpu", small=True)

@@ -243,7 +243,8 @@ def test_engine_import_loads_no_jax():
         "tpu_inspect_torch.persistence, tpu_inspect_torch.imageio, "
         "tpu_inspect_torch.viewport, tpu_inspect_torch.utils, "
         "tpu_inspect_torch.streaming, tpu_inspect_torch.cli, tpu_inspect_torch.native, "
-        "tpu_inspect_torch.utils.profile, tpu_inspect_torch.tools.median_probe; "
+        "tpu_inspect_torch.utils.profile, tpu_inspect_torch.tools.median_probe, "
+        "tpu_inspect_torch.tools.kernel_bench; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_inspect' or m.startswith('tpu_inspect.') "
         "or m == 'cv2' or m.startswith('cv2.')]; "

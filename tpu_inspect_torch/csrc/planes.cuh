@@ -471,22 +471,6 @@ __device__ inline int code_of(const uint32_t* P, int b, bool inv, const Bits& g)
   return code_at(P, by, b - by * g.wb, inv, g);
 }
 
-// The root of x by a walk that stores nothing (par's roots must be final);
-// past its bound it sets *err
-template <bool kShared>
-__device__ inline int root_walk(const int* par, int x, int n, int* err) {
-  int p = uf::load_parent<kShared>(par, x);
-  for (int steps = 0; p != x; ++steps) {
-    if (steps > n) {
-      atomicExch(err, 1);
-      break;
-    }
-    x = p;
-    p = uf::load_parent<kShared>(par, x);
-  }
-  return x;
-}
-
 // The 8-connected components of P's set pixels (of its complement with
 // inv) on the block grid: afterwards par[b] is the root (the minimum block
 // index of b's component) of every non-empty block b; empty blocks keep

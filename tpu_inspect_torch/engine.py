@@ -262,28 +262,28 @@ def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None, err=None)
     """:func:`ops.fused.seg_tail`'s contract on the whole-image route
     (kernels D, E and F on whole planes), with int64 stats: the port of the
     JAX package's ``raw_segment`` + ``largest_component_sums`` and
-    ``_defect_roi_fallback``. ``err`` is not used: kernels D, E and F read
-    their own bound flags."""
+    ``_defect_roi_fallback``. ``err``: the bound flag kernels D, E and F
+    set, read by the caller; without one each launch reads its own."""
     m = tail_mask(x, stages, thr, morph=morph_chain)
     if fill:
-        m = m | ~exterior_background(m)
-    best, stats = component_stats(label_components(m), m)
+        m = m | ~exterior_background(m, err)
+    best, stats = component_stats(label_components(m, err), m, err)
     out = best if out_largest else m
     return out.to(torch.uint8) * 255, stats
 
 
-def _fill_regions(m: torch.Tensor):
+def _fill_regions(m: torch.Tensor, err=None):
     """(fill labels int32, top-level blob pixels bool, exterior bool) of a
     [U, H, W] bool candidate plane: kernel D for the exterior; kernel E for
     the fill labels; kernel D again, seeded with each fill region's
     raster-first pixel (always a pixel of its top-level blob), for the
     top-level blobs through the candidates, 8-connected
-    (``contour.py:596-602``)."""
+    (``contour.py:596-602``). ``err`` as for :func:`_whole_tail`."""
     u, h, w = m.shape
-    ext = exterior_background(m)
-    fill_labels = label_components(~ext)
+    ext = exterior_background(m, err)
+    fill_labels = label_components(~ext, err)
     lin = torch.arange(h * w, dtype=torch.int32, device=m.device).reshape(1, h, w)
-    top = propagate(m & (fill_labels == lin), m, conn8=True)
+    top = propagate(m & (fill_labels == lin), m, conn8=True, err=err)
     return fill_labels, top, ext
 
 
@@ -291,9 +291,9 @@ def _whole_blobs(fg, max_x2, *, min_x2: int, roi=None, pre_open=False, err=None)
     """:func:`ops.blob.blob_filter`'s contract on the whole-image route (the
     port of ``contour.filter_and_select`` at whole-image size): the fill
     regions (:func:`_fill_regions`), then kernel G for the Green's filter
-    and the paint. ``err`` is not used, as for :func:`_whole_tail`."""
+    and the paint. ``err`` as for :func:`_whole_tail`."""
     m = candidate_mask(fg, roi, pre_open, morph=morph_chain)
-    return blob_select(*_fill_regions(m), max_x2, min_x2=min_x2)
+    return blob_select(*_fill_regions(m, err), max_x2, min_x2=min_x2, err=err)
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -306,15 +306,13 @@ def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
-def _segment(crops, seg, exclusions, ref_centroids, is_reference, err=None):
-    """Segmentation pass on [U, H, W] crops -> (mask u8, sums [U,3] int64,
-    has_fg [U] bool, shifts [U,2] int32), all on the crops' device. ``err``:
-    the bound flag kernel A sets (:func:`tpu_inspect_torch.kernels.error_flag`),
-    read by the caller; without one each launch reads its own."""
-    u, h, w = crops.shape
-    dev = crops.device
-    rects, circles = pack_exclusions(exclusions)
-    ref_arr, ref_ok = ref_centroid_arrays(ref_centroids, u)
+def _seg_mask(crops, seg, err=None):
+    """The pre-exclusion segmentation of [U, H, W] crops: Gaussian, Otsu (or
+    the adaptive threshold), close+open, hole fill -> (mask u8 0/255, stats
+    [U, 8]: int32 from kernel A, int64 on the whole-image route). ``err``:
+    the bound flag the tail's kernels set
+    (:func:`tpu_inspect_torch.kernels.error_flag`), read by the caller;
+    without one each launch reads its own."""
     x = crops
     if seg.gaussian_blur and seg.gaussian_blur > 0:
         x = gaussian_blur_u8(x, as_odd(seg.gaussian_blur))
@@ -326,8 +324,19 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference, err=None):
         x, thr = adaptive_threshold_inv(x, bs, int(seg.adapt_C)), None
     else:
         thr = otsu_threshold(x)
-    tail = _whole_tail if _whole_route(h, w) else seg_tail
-    mask, st = tail(x, stages=stages, fill=True, out_largest=False, thr=thr, err=err)
+    tail = _whole_tail if _whole_route(*crops.shape[1:]) else seg_tail
+    return tail(x, stages=stages, fill=True, out_largest=False, thr=thr, err=err)
+
+
+def _segment(crops, seg, exclusions, ref_centroids, is_reference, err=None):
+    """Segmentation pass on [U, H, W] crops -> (mask u8, sums [U,3] int64,
+    has_fg [U] bool, shifts [U,2] int32), all on the crops' device. ``err``
+    as for :func:`_seg_mask`."""
+    u, h, w = crops.shape
+    dev = crops.device
+    rects, circles = pack_exclusions(exclusions)
+    ref_arr, ref_ok = ref_centroid_arrays(ref_centroids, u)
+    mask, st = _seg_mask(crops, seg, err)
     area, sx, sy = st[:, 0], st[:, 1], st[:, 2]
     has_fg = st[:, 3] > 0
 
@@ -360,25 +369,25 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference, err=None):
     return mask, sums, has_fg, torch.stack([dx, dy], dim=-1)
 
 
-def _defect_roi(seg_masks, params: DefectParams, err=None):
-    """ROI: binarize, (2n+1)^2 erode, largest 8-CC (holes kept) -> (roi u8,
-    stats [U, 8], int32 from kernel A, int64 on the whole-image route)
-    (indexing_ui.py:1480-1516)."""
+def _defect_roi(seg_masks, erode_px: int, err=None):
+    """ROI: binarize, (2n+1)^2 erode (n = ``erode_px``), largest 8-CC (holes
+    kept) -> (roi u8, stats [U, 8], int32 from kernel A, int64 on the
+    whole-image route) (indexing_ui.py:1480-1516)."""
     tail = _whole_tail if _whole_route(*seg_masks.shape[1:]) else seg_tail
     return tail(
-        seg_masks, stages=rect_erode_stages(params.erode_px), fill=False,
-        out_largest=True, err=err,
+        seg_masks, stages=rect_erode_stages(erode_px), fill=False, out_largest=True, err=err,
     )
 
 
-def _candidates(crops, params: DefectParams, roi_stats):
+def _candidates(crops, params: DefectParams, roi_stats, err=None):
     """Pre-ROI candidate plane: the median residual over the ROI rows, or
     Canny edges (indexing_ui.py:1519-1539). A median window of k*k >= 2048
     takes the full median blur (kernel H) over every row, and
-    THRESH_BINARY of |x - bg| (``engine.py:461-465`` of the JAX package)."""
+    THRESH_BINARY of |x - bg| (``engine.py:461-465`` of the JAX package).
+    ``err``: the bound flag of Canny's kernel D."""
     thr = int(params.threshold)
     if params.method == "canny":
-        return canny_u8(crops, max(1, thr // 2), max(2, thr))
+        return canny_u8(crops, max(1, thr // 2), max(2, thr), err)
     k = _median_k(params)
     if k * k >= 2048:
         bg = median_blur_u8(crops, k)
@@ -404,7 +413,7 @@ def _defect_from_roi(crops, roi, roi_stats, params: DefectParams, err=None):
     ).to(torch.int32)
     filt = _whole_blobs if _whole_route(*crops.shape[1:]) else blob_filter
     out, area = filt(
-        _candidates(crops, params, roi_stats), (2 * max_area).contiguous(),
+        _candidates(crops, params, roi_stats, err), (2 * max_area).contiguous(),
         min_x2=2 * min_area, roi=roi, pre_open=params.method == "threshold", err=err,
     )
     found = area > 0
@@ -415,7 +424,7 @@ def _defect_from_roi(crops, roi, roi_stats, params: DefectParams, err=None):
 def _defect(crops, seg_masks, params: DefectParams, err=None):
     """Defect pass -> (masks u8, found bool, area int32, verdict bool)
     (indexing_ui.py:1471-1572, :1669-1700)."""
-    return _defect_from_roi(crops, *_defect_roi(seg_masks, params, err), params, err)
+    return _defect_from_roi(crops, *_defect_roi(seg_masks, params.erode_px, err), params, err)
 
 
 # Read ONCE at import, as the JAX package reads it: set the variable before
@@ -467,7 +476,8 @@ def _inspect_image_device(image, origins, unit_hw, seg: SegmentationParams,
     (defect masks, found, area, verdict) or None without defects). The
     port of the JAX package's ``_inspect_image_device``; ``seg`` and
     ``defect`` are validated by the caller. With ``err`` (a
-    :func:`tpu_inspect_torch.kernels.error_flag`) kernels A, C and K set it
+    :func:`tpu_inspect_torch.kernels.error_flag`) every kernel with a bound
+    (A, C, K; D, E, F, G on the whole-image route; Canny's D) sets it
     instead of being read one by one, and the caller reads it where it
     copies the results out: the program then waits for the card nowhere."""
     crops = gather_crops(image, origins, unit_hw)
@@ -536,7 +546,9 @@ def defect_intermediates(crop, seg_mask, params: DefectParams,
         "erode_px": int(params.erode_px),
         "min_area": int(params.min_area),
     }
-    roi, st = _defect_roi(masks, params)
+    # one bound flag for every kernel of the pass, read before it returns
+    err = error_flag(dev)
+    roi, st = _defect_roi(masks, params.erode_px, err)
     roi_area, _, _, has_fg = st[0, :4].tolist()
     out["roi_empty"] = has_fg == 0
     out["roi_area"] = int(roi_area)
@@ -546,13 +558,15 @@ def defect_intermediates(crop, seg_mask, params: DefectParams,
         out["min_area"], int(out["roi_area"] * float(params.max_area_frac))
     )
     if out["roi_empty"]:
+        build.check_bounded("defect_intermediates", err)
         return out
-    cand = _candidates(crops, params, st)
+    cand = _candidates(crops, params, st, err)
     cand = torch.where(roi > 0, cand, torch.zeros_like(cand))
     if params.method == "threshold":
         cand = morph_chain(cand, open_stages(3))
         out["resid_area"] = int((cand > 0).sum())
-    analysis = analyze_blobs(cand > 0)
+    analysis = analyze_blobs(cand > 0, err)
+    build.check_bounded("defect_intermediates", err)
     a2 = _to_numpy(analysis.contour_area_x2[0])
     roots = _to_numpy(analysis.is_root[0])
     areas = (a2[roots] // 2).astype(int)  # int(contourArea): a2 is exact 2x
@@ -560,6 +574,42 @@ def defect_intermediates(crop, seg_mask, params: DefectParams,
         int(a) for a in areas if a >= out["min_area"] and a > out["max_area"]
     )
     return out
+
+
+def _crops_tensor(crops, name: str) -> torch.Tensor:
+    """Raise unless ``crops`` is a [U, H, W] uint8 tensor; its contiguous
+    form."""
+    if not isinstance(crops, torch.Tensor) or crops.dtype != torch.uint8 or crops.ndim != 3:
+        raise ValueError(f"{name}: expected a [U, H, W] uint8 tensor, got {crops!r:.80}")
+    return crops.contiguous()
+
+
+def raw_segment(crops: torch.Tensor, seg: SegmentationParams) -> torch.Tensor:
+    """Pre-exclusion segmentation chain (segment_cell parity,
+    segmentation.py:75-100; the port of
+    :func:`tpu_inspect.engine.raw_segment`): [U, H, W] uint8 crops ->
+    [U, H, W] uint8 0/255 masks on the crops' device (Gaussian, Otsu or the
+    adaptive threshold, close+open, hole fill: kernel A, or the whole-image
+    route's kernels D, E and F). The bound flag is read once, at the end."""
+    crops = _crops_tensor(crops, "raw_segment")
+    err = error_flag(crops.device)
+    mask, _ = _seg_mask(crops, seg.validated(), err)
+    build.check_bounded("raw_segment", err)
+    return mask
+
+
+def defect_roi(seg_masks: torch.Tensor, erode_px: int):
+    """ROI prep (indexing_ui.py:1480-1516; the port of
+    :func:`tpu_inspect.engine.defect_roi`): binarize the [U, H, W] uint8 seg
+    masks, erode ``erode_px`` iterations of a 3x3 rect, keep the largest
+    8-connected component (holes kept). Returns (roi [U, H, W] bool,
+    roi_empty [U] bool) on the masks' device. The bound flag is read once,
+    at the end."""
+    seg_masks = _crops_tensor(seg_masks, "defect_roi")
+    err = error_flag(seg_masks.device)
+    roi, st = _defect_roi(seg_masks, int(erode_px), err)
+    build.check_bounded("defect_roi", err)
+    return roi > 0, st[:, 3] == 0
 
 
 def segment_units(crops, seg: SegmentationParams, exclusions=(),
@@ -571,9 +621,10 @@ def segment_units(crops, seg: SegmentationParams, exclusions=(),
     ``ref_centroids`` (array [U, 2] or {idx: (cx, cy)} dict)."""
     dev = resolve_device(device)
     seg = seg.validated()
-    return _seg_result(*_segment(
-        _as_u8(crops, dev), seg, exclusions, ref_centroids, bool(is_reference)
-    ))
+    err = error_flag(dev)
+    out = _segment(_as_u8(crops, dev), seg, exclusions, ref_centroids, bool(is_reference), err)
+    build.check_bounded("segment_units", err)
+    return _seg_result(*out)
 
 
 def detect_defects_batch(crops, seg_masks, params: DefectParams,
@@ -582,7 +633,10 @@ def detect_defects_batch(crops, seg_masks, params: DefectParams,
     :1669-1700)."""
     dev = resolve_device(device)
     params = params.validated()
-    return _insp_result(*_defect(_as_u8(crops, dev), _as_u8(seg_masks, dev), params))
+    err = error_flag(dev)
+    out = _defect(_as_u8(crops, dev), _as_u8(seg_masks, dev), params, err)
+    build.check_bounded("detect_defects_batch", err)
+    return _insp_result(*out)
 
 
 def inspect_units(crops, seg: SegmentationParams, defect: DefectParams,
@@ -593,8 +647,11 @@ def inspect_units(crops, seg: SegmentationParams, defect: DefectParams,
     dev = resolve_device(device)
     seg, defect = seg.validated(), defect.validated()
     crops_t = _as_u8(crops, dev)
-    seg_out = _segment(crops_t, seg, exclusions, ref_centroids, bool(is_reference))
-    return _seg_result(*seg_out), _insp_result(*_defect(crops_t, seg_out[0], defect))
+    err = error_flag(dev)
+    seg_out = _segment(crops_t, seg, exclusions, ref_centroids, bool(is_reference), err)
+    insp_out = _defect(crops_t, seg_out[0], defect, err)
+    build.check_bounded("inspect_units", err)
+    return _seg_result(*seg_out), _insp_result(*insp_out)
 
 
 def inspect_image(image, grid: GridParams, seg: SegmentationParams,

@@ -46,10 +46,11 @@ _SIGNATURES = {
     # fg, roi, max_x2, table, prog, out, area, scratch, scratch words, err,
     # U, H, W, min_x2, has_roi, stream
     "tik_blob_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _P),
-    # seed, domain, out, parent, flags, err, U, H, W, conn8, border_seed, stream
-    "tik_propagate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # fg, out, parent, err, U, H, W, stream
-    "tik_label": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # seed, domain, out, parent, flags, bits, err, U, H, W, conn8, border_seed,
+    # stream
+    "tik_propagate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # fg, out, parent, bits, err, U, H, W, stream
+    "tik_label": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # labels, fg, mask, stats, slots, units, err, U, H, W, stream
     "tik_component_stats": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # fill_labels, top, ext, max_x2, table, out, area, sums, err, U, H, W,

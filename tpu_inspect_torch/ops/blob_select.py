@@ -26,6 +26,7 @@ from tpu_inspect_torch.kernels import (
     build,
     check_labels,
     check_vector,
+    error_flag,
 )
 from tpu_inspect_torch.ops._contour_table import CONTOUR_TABLE_X2
 from tpu_inspect_torch.ops.contour import contour_sums_x2
@@ -51,7 +52,7 @@ def blob_select_plain(fill_labels, top, ext, max_x2, *, min_x2: int):
     return out.to(torch.uint8) * 255, area
 
 
-def blob_select(fill_labels, top, ext, max_x2, *, min_x2: int):
+def blob_select(fill_labels, top, ext, max_x2, *, min_x2: int, err=None):
     """Keep the fill regions whose top-level blob has
     ``min_x2 <= 2*contourArea <= max_x2[u]`` and paint them.
 
@@ -60,7 +61,8 @@ def blob_select(fill_labels, top, ext, max_x2, *, min_x2: int):
     ``ext`` are [U, H, W] bool (or uint8, nonzero = set) planes: the
     top-level blob pixels and the exterior (background 4-connected to the
     border); ``max_x2`` is [U] int32. Returns (painted mask [U, H, W] uint8
-    0/255, pixel area [U] int32)."""
+    0/255, pixel area [U] int32). ``err`` as for
+    :func:`tpu_inspect_torch.ops.flood.propagate`."""
     top = as_planes(top, "blob_select top")
     ext = as_planes(ext, "blob_select ext")
     if ext.shape != top.shape or ext.device != top.device:
@@ -76,15 +78,16 @@ def blob_select(fill_labels, top, ext, max_x2, *, min_x2: int):
     out = torch.empty((u, h, w), dtype=torch.uint8, device=dev)
     area = torch.empty((u,), dtype=torch.int32, device=dev)
     sums = torch.empty((u * h * w,), dtype=torch.int64, device=dev)
-    err = torch.zeros((1,), dtype=torch.int32, device=dev)
+    flag = error_flag(dev) if err is None else err
     table = contour_table(str(dev))
     code = build.lib().tik_blob_select(
         fill_labels.data_ptr(), top.data_ptr(), ext.data_ptr(), max_x2.data_ptr(),
         table.data_ptr(), out.data_ptr(), area.data_ptr(), sums.data_ptr(),
-        err.data_ptr(), u, h, w, int(min_x2),
+        flag.data_ptr(), u, h, w, int(min_x2),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("blob_select", code)
     LAUNCHES["blob_select"] += 1
-    build.check_bounded("blob_select", err)
+    if err is None:
+        build.check_bounded("blob_select", flag)
     return out, area

@@ -85,9 +85,10 @@ def canny_planes(x: torch.Tensor, low: int, high: int):
     return strong, cand
 
 
-def canny_u8(x: torch.Tensor, low: int, high: int) -> torch.Tensor:
+def canny_u8(x: torch.Tensor, low: int, high: int, err=None) -> torch.Tensor:
     """x [U, H, W] uint8 -> edges uint8 0/255; low/high as cv2.Canny (their
-    order does not matter). On CUDA tensors it launches kernel D once."""
+    order does not matter). On CUDA tensors it launches kernel D once
+    (``err`` as for :func:`tpu_inspect_torch.ops.flood.propagate`)."""
     strong, cand = canny_planes(x, low, high)
-    edges = propagate(strong, cand, conn8=True)
+    edges = propagate(strong, cand, conn8=True, err=err)
     return torch.where(edges, 255, 0).to(torch.uint8)

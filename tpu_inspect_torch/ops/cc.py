@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build, check_labels
+from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build, check_labels, error_flag
 
 BIG = 2**30
 _K = 2**31  # > every label value; keys stay in int64
@@ -81,26 +81,31 @@ def label_components_plain(fg: torch.Tensor) -> torch.Tensor:
     return propagate_min(init, fg, conn8=True).to(torch.int32)
 
 
-def label_components(fg: torch.Tensor) -> torch.Tensor:
+def label_components(fg: torch.Tensor, err=None) -> torch.Tensor:
     """fg [U, H, W] bool (or uint8, nonzero = fg) -> int32 labels: the
     raster-first pixel index ``y*W + x`` of each 8-connected component,
-    BIG on background."""
+    BIG on background. ``err`` as for
+    :func:`tpu_inspect_torch.ops.flood.propagate`."""
     fg = as_planes(fg, "label_components")
     if fg.device.type == "cpu":
         return label_components_plain(fg)
     u, h, w = fg.shape
     if u * h * w >= 2**31:
         raise ValueError(f"label_components: {u}x{h}x{w} too large for int32 indices")
-    out = torch.empty((u, h, w), dtype=torch.int32, device=fg.device)
-    parent = torch.empty((u * h * w,), dtype=torch.int32, device=fg.device)
-    err = torch.zeros((1,), dtype=torch.int32, device=fg.device)
+    dev = fg.device
+    out = torch.empty((u, h, w), dtype=torch.int32, device=dev)
+    # parents are written at run starts only; no zeroing
+    parent = torch.empty((u * h * w,), dtype=torch.int32, device=dev)
+    bits = torch.empty((u * h * ((w + 31) // 32),), dtype=torch.int32, device=dev)
+    flag = error_flag(dev) if err is None else err
     code = build.lib().tik_label(
-        fg.data_ptr(), out.data_ptr(), parent.data_ptr(), err.data_ptr(), u, h, w,
-        torch.cuda.current_stream(fg.device).cuda_stream,
+        fg.data_ptr(), out.data_ptr(), parent.data_ptr(), bits.data_ptr(), flag.data_ptr(),
+        u, h, w, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("label_components", code)
     LAUNCHES["label"] += 1
-    build.check_bounded("label_components", err)
+    if err is None:
+        build.check_bounded("label_components", flag)
     return out
 
 
@@ -170,7 +175,7 @@ def component_stats_plain(labels: torch.Tensor, fg: torch.Tensor):
     return mask, stats
 
 
-def component_stats(labels: torch.Tensor, fg: torch.Tensor):
+def component_stats(labels: torch.Tensor, fg: torch.Tensor, err=None):
     """Largest 8-connected component per unit from given labels; kernel F.
 
     ``labels`` [U, H, W] int32 are :func:`label_components`' (the
@@ -183,7 +188,8 @@ def component_stats(labels: torch.Tensor, fg: torch.Tensor):
     unit gives (0, 0, 0, 0, H, 0, W, 0).
 
     Launches ``csrc/cc_stats.cu`` for CUDA tensors and runs
-    :func:`component_stats_plain` for CPU tensors."""
+    :func:`component_stats_plain` for CPU tensors; ``err`` as for
+    :func:`tpu_inspect_torch.ops.flood.propagate`."""
     fg = as_planes(fg, "component_stats fg")
     check_labels(labels, fg, "component_stats labels")
     if fg.device.type == "cpu":
@@ -196,15 +202,16 @@ def component_stats(labels: torch.Tensor, fg: torch.Tensor):
     stats = torch.empty((u, 8), dtype=torch.int64, device=dev)
     slots = torch.empty((2 * u * h * w,), dtype=torch.int32, device=dev)
     units = torch.empty((u, 8), dtype=torch.int64, device=dev)
-    err = torch.zeros((1,), dtype=torch.int32, device=dev)
+    flag = error_flag(dev) if err is None else err
     code = build.lib().tik_component_stats(
         labels.data_ptr(), fg.data_ptr(), mask.data_ptr(), stats.data_ptr(),
-        slots.data_ptr(), units.data_ptr(), err.data_ptr(), u, h, w,
+        slots.data_ptr(), units.data_ptr(), flag.data_ptr(), u, h, w,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("component_stats", code)
     LAUNCHES["cc_stats"] += 1
-    build.check_bounded("component_stats", err)
+    if err is None:
+        build.check_bounded("component_stats", flag)
     return mask.view(torch.bool), stats
 
 

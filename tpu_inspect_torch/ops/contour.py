@@ -71,15 +71,16 @@ def contour_sums_x2(top, ext, fill_labels) -> torch.Tensor:
     return sums[:, :hw]
 
 
-def analyze_blobs(fg: torch.Tensor) -> BlobAnalysis:
+def analyze_blobs(fg: torch.Tensor, err=None) -> BlobAnalysis:
     """fg [U, H, W] bool candidate mask -> per-blob contour areas. On CUDA
-    tensors it launches kernel D once and kernel E twice."""
+    tensors it launches kernel D once and kernel E twice (``err`` as for
+    :func:`tpu_inspect_torch.ops.flood.propagate`)."""
     u, h, w = fg.shape
     hw = h * w
-    ext = exterior_background(fg)
+    ext = exterior_background(fg, err)
     fill = ~ext
-    fill_labels = label_components(fill)
-    fg_labels = label_components(fg)
+    fill_labels = label_components(fill, err)
+    fg_labels = label_components(fg, err)
     top = fg & (fg_labels == fill_labels)
     areas_x2 = contour_sums_x2(top, ext, fill_labels).abs().to(torch.int32)
     lin = torch.arange(hw, device=fg.device, dtype=torch.int32)[None, :]

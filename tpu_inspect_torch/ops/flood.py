@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build
+from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build, error_flag
 from tpu_inspect_torch.ops.cc import BIG, propagate_min
 
 
@@ -40,12 +40,16 @@ def propagate_plain(seed, domain, conn8: bool, border_seed: bool = False):
     return propagate_min(init, dom, conn8=bool(conn8)) == 0
 
 
-def propagate(seed, domain, conn8: bool, border_seed: bool = False):
+def propagate(seed, domain, conn8: bool, border_seed: bool = False, err=None):
     """Reachability of ``seed & domain`` through ``domain``.
 
     ``seed`` and ``domain`` are contiguous [U, H, W] uint8 (or bool) planes,
     nonzero = set; ``seed`` is ignored (may be None) with ``border_seed``.
-    Returns [U, H, W] bool."""
+    Returns [U, H, W] bool. ``err`` (CUDA only): a
+    :func:`tpu_inspect_torch.kernels.error_flag` the kernel sets if a
+    union-find loop passes its bound, read by the caller where it copies
+    results out; without one the wrapper reads its own right after the
+    launch."""
     domain = as_planes(domain, "propagate domain")
     if not border_seed:
         seed = as_planes(seed, "propagate seed")
@@ -56,18 +60,21 @@ def propagate(seed, domain, conn8: bool, border_seed: bool = False):
     u, h, w = domain.shape
     if u * h * w >= 2**31:
         raise ValueError(f"propagate: {u}x{h}x{w} too large for int32 indices")
+    dev = domain.device
     n = u * h * w
-    out = torch.empty((u, h, w), dtype=torch.uint8, device=domain.device)
-    parent = torch.empty((n,), dtype=torch.int32, device=domain.device)
-    flags = torch.empty((n,), dtype=torch.uint8, device=domain.device)
-    err = torch.zeros((1,), dtype=torch.int32, device=domain.device)
+    out = torch.empty((u, h, w), dtype=torch.uint8, device=dev)
+    # parents and seed flags are written at run starts only; no zeroing
+    parent = torch.empty((n,), dtype=torch.int32, device=dev)
+    flags = torch.empty((n,), dtype=torch.uint8, device=dev)
+    bits = torch.empty((u * h * ((w + 31) // 32),), dtype=torch.int32, device=dev)
+    flag = error_flag(dev) if err is None else err
     code = build.lib().tik_propagate(
         None if border_seed else seed.data_ptr(), domain.data_ptr(), out.data_ptr(),
-        parent.data_ptr(), flags.data_ptr(), err.data_ptr(), u, h, w,
-        int(bool(conn8)), int(bool(border_seed)),
-        torch.cuda.current_stream(domain.device).cuda_stream,
+        parent.data_ptr(), flags.data_ptr(), bits.data_ptr(), flag.data_ptr(), u, h, w,
+        int(bool(conn8)), int(bool(border_seed)), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("propagate", code)
     LAUNCHES["propagate"] += 1
-    build.check_bounded("propagate", err)
+    if err is None:
+        build.check_bounded("propagate", flag)
     return out.view(torch.bool)

@@ -1,0 +1,238 @@
+"""Time one form of kernel D or E at a time, checked exact against its plain
+version: the rig to iterate on a kernel without a whole chip_smoke run.
+
+The port of ``tools/kernel_bench.py`` (which times the JAX package's Pallas
+kernels one by one). Its planes are ``chip_smoke.py``'s: the standard
+workload's 48 units of 315x316 and the same image as one 1x3000x4096
+unit, made by the port's own engine on the card. Each form is run once
+and held against its plain version (exact: both give integers), then timed
+with CUDA events (``n`` calls in a row, median of ``reps``) beside the
+plain version and its byte bound (each input read once, the output
+written once, at 3.35 TB/s).
+
+Usage::
+
+    python -m tpu_inspect_torch.tools.kernel_bench [FORM ...] [--n N] [--reps R]
+        [--device cpu] [--small]
+
+With no FORM, every form runs (``--list`` names them). It runs on the card
+unless ``--device cpu`` is given; on the CPU the wrappers run their plain
+versions and the times are host walls of those, not device times.
+``--small`` builds the planes from a 2x2 grid of 64x64 units and a 96x128
+capture instead (what the CPU test drives).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+
+
+def planes(dev: torch.device, small: bool = False) -> dict:
+    """The named input planes of D's and E's forms on ``dev``, made as the
+    main paths make them (otsu/threshold, the standard workload's
+    exclusions; Canny at the default threshold)."""
+    from tpu_inspect_torch import engine
+    from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
+    from tpu_inspect_torch.geometry import grid_origins
+    from tpu_inspect_torch.imageio import gather_crops
+    from tpu_inspect_torch.ops.blob import candidate_mask
+    from tpu_inspect_torch.ops.canny import canny_planes
+    from tpu_inspect_torch.ops.fused import tail_mask
+    from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
+    from tpu_inspect_torch.ops.hole_fill import exterior_background
+    from tpu_inspect_torch.ops.median import median_residual_mask
+    from tpu_inspect_torch.ops.morphology import close_open_stages, rect_erode_stages
+    from tpu_inspect_torch.ops.threshold import otsu_threshold
+    from tpu_inspect_torch.synthetic import make_mold_image, standard_workload
+
+    seg = SegmentationParams().validated()
+    dp = DefectParams().validated()
+    if small:
+        grid = GridParams(base_unit=(3, 4, 64, 64), units_x=2, units_y=2)
+        image_np = make_mold_image(grid, (96, 128), seed=0, defect_rate=0.3)
+        excl, (h, w) = [], (64, 64)
+        origins_np = grid_origins(grid)
+    else:
+        wl = standard_workload()
+        image_np, excl, (h, w), origins_np = wl["image"], wl["exclusions"], wl["unit_hw"], \
+            wl["origins"]
+    image = torch.from_numpy(image_np).to(dev)
+    crops = gather_crops(image, torch.from_numpy(origins_np).to(dev), (h, w))
+    seg_masks = engine._segment(crops, seg, excl, None, True)[0]
+    roi, roi_st = engine._defect_roi(seg_masks, dp.erode_px)
+    lo, hi = max(1, dp.threshold // 2), max(2, dp.threshold)
+    strong, cand_c = canny_planes(crops, lo, hi)
+    u0 = int(torch.nonzero(roi_st[:, 3] > 0)[0, 0])
+    fg1 = (cand_c & (roi > 0))[u0 : u0 + 1].contiguous()
+    fill1 = exterior_background(fg1).logical_not().contiguous()
+
+    whole = image[None].contiguous()
+    seg_w = engine._segment(whole, seg, excl, None, True)[0]
+    x_w = gaussian_blur_u8(whole, seg.gaussian_blur)
+    seg_pre_w = tail_mask(x_w, close_open_stages(seg.morph_kernel), otsu_threshold(x_w))
+    seg_fill_w = seg_pre_w | exterior_background(seg_pre_w).logical_not()
+    roi_w, roi_st_w = engine._whole_tail(seg_w, rect_erode_stages(dp.erode_px),
+                                         out_largest=True)
+    cand_w = median_residual_mask(whole, dp.median_k, dp.threshold,
+                                  roi_st_w[:, 4].to(torch.int32).contiguous(),
+                                  roi_st_w[:, 5].to(torch.int32).contiguous())
+    m_w = candidate_mask(cand_w, roi_w, True)
+    fill_w, _, ext_w = engine._fill_regions(m_w)
+    lin = torch.arange(m_w[0].numel(), dtype=torch.int32, device=dev).reshape(m_w.shape)
+    return {
+        "strong": strong, "cand": cand_c, "free": (seg_masks == 0).contiguous(),
+        "fg1": fg1, "fill1": fill1, "free1": fg1.logical_not().contiguous(),
+        "free_w": seg_pre_w.logical_not().contiguous(), "seg_fill_w": seg_fill_w.contiguous(),
+        "roi_pre_w": tail_mask(seg_w, rect_erode_stages(dp.erode_px)).contiguous(),
+        "free_mw": m_w.logical_not().contiguous(), "m_w": m_w.contiguous(),
+        "seed_w": (m_w & (fill_w == lin)).contiguous(), "fill_plane_w": ext_w.logical_not().contiguous(),
+    }
+
+
+# form -> (kernel, input plane names, call on (kernel function, planes));
+# the first six are D's four paths (the 48 units' Canny hysteresis and the
+# whole-image route's three), then E's
+FORMS = {
+    "D canny 48u": ("propagate", ("strong", "cand"), lambda f, p: f(p["strong"], p["cand"], True)),
+    "D border seg masks 48u": ("propagate", ("free",),
+                               lambda f, p: f(None, p["free"], False, border_seed=True)),
+    "D border diag unit": ("propagate", ("free1",),
+                           lambda f, p: f(None, p["free1"], False, border_seed=True)),
+    "D whole seg hole fill": ("propagate", ("free_w",),
+                              lambda f, p: f(None, p["free_w"], False, border_seed=True)),
+    "D whole defect exterior": ("propagate", ("free_mw",),
+                                lambda f, p: f(None, p["free_mw"], False, border_seed=True)),
+    "D whole top-level blobs": ("propagate", ("seed_w", "m_w"),
+                                lambda f, p: f(p["seed_w"], p["m_w"], True)),
+    "E diag fill plane": ("label", ("fill1",), lambda f, p: f(p["fill1"])),
+    "E diag fg plane": ("label", ("fg1",), lambda f, p: f(p["fg1"])),
+    "E canny candidates 48u": ("label", ("cand",), lambda f, p: f(p["cand"])),
+    "E whole seg mask": ("label", ("seg_fill_w",), lambda f, p: f(p["seg_fill_w"])),
+    "E whole ROI": ("label", ("roi_pre_w",), lambda f, p: f(p["roi_pre_w"])),
+    "E whole fill regions": ("label", ("fill_plane_w",), lambda f, p: f(p["fill_plane_w"])),
+}
+
+
+def kernels() -> dict:
+    """kernel name -> (wrapper, plain version)."""
+    from tpu_inspect_torch.ops.cc import label_components, label_components_plain
+    from tpu_inspect_torch.ops.flood import propagate, propagate_plain
+
+    return {"propagate": (propagate, propagate_plain),
+            "label": (label_components, label_components_plain)}
+
+
+def _ms(fn, dev: torch.device, n: int, reps: int) -> float:
+    """Median ms per call over ``reps`` runs of ``n`` calls in a row: CUDA
+    events on the card, the host clock on the CPU."""
+    fn()
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / n)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / n)
+    return statistics.median(times)
+
+
+def bench(forms=tuple(FORMS), device="cuda", small: bool = False, n: int = 20,
+          reps: int = 5, profile: bool = False) -> list[dict]:
+    """Check and time each of ``forms``; returns one dict a form (form,
+    kernel, shape, max_abs_err, ms, ms_flag_each_call, plain_ms, bound_ms,
+    where). ``ms`` passes every call one bound flag, read after the
+    timing (as the engine's entry points read theirs once a call);
+    ``ms_flag_each_call`` lets the wrapper read its own flag after each
+    launch, a host wait a call. With ``profile`` (card only) each row also
+    has ``device``: [name, ms, launches] per kernel and call under
+    ``torch.profiler``. Raises if a form differs from its plain version or a
+    kernel set its flag."""
+    from functools import partial
+
+    from tpu_inspect_torch.device import resolve_device
+    from tpu_inspect_torch.kernels import build, error_flag
+
+    unknown = [f for f in forms if f not in FORMS]
+    if unknown:
+        raise ValueError(f"kernel_bench: unknown forms {unknown}; known: {list(FORMS)}")
+    dev = resolve_device(device)
+    p = planes(dev, small)
+    fns = kernels()
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu (host wall)"
+    rows = []
+    for form in forms:
+        name, inputs, call = FORMS[form]
+        fast, plain = fns[name]
+        got, ref = call(fast, p), call(plain, p)
+        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
+        if got.dtype != ref.dtype or err:
+            raise RuntimeError(f"kernel_bench: {form} differs from its plain version "
+                               f"(max |err| {err}, {got.dtype} vs {ref.dtype})")
+        moved = sum(p[k].numel() * p[k].element_size() for k in inputs)
+        moved += got.numel() * got.element_size()
+        flag = error_flag(dev)
+        one_flag = partial(fast, err=flag) if dev.type == "cuda" else fast
+        rows.append({
+            "form": form, "kernel": name, "shape": list(got.shape), "max_abs_err": err,
+            "ms": _ms(lambda: call(one_flag, p), dev, n, reps),
+            "ms_flag_each_call": _ms(lambda: call(fast, p), dev, n, reps),
+            "plain_ms": _ms(lambda: call(plain, p), dev, max(1, n // 10), reps),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "where": where,
+        })
+        if profile and dev.type == "cuda":
+            from tpu_inspect_torch.utils.profile import profile_device
+
+            prof = profile_device(lambda: call(one_flag, p), reps)
+            rows[-1]["device"] = [[k[:60], ms, c] for k, ms, c in prof.rows]
+        build.check_bounded(f"kernel_bench {form}", flag)
+    return rows
+
+
+def main(argv=None) -> list[dict]:
+    ap = argparse.ArgumentParser(prog="python -m tpu_inspect_torch.tools.kernel_bench",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("forms", nargs="*", help="forms to run (default: all)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--small", action="store_true", help="small planes (a CPU run)")
+    ap.add_argument("--n", type=int, default=20, help="calls in a row per timing")
+    ap.add_argument("--reps", type=int, default=5, help="timings per form (median)")
+    ap.add_argument("--profile", action="store_true",
+                    help="device time per kernel under torch.profiler (card only)")
+    ap.add_argument("--list", action="store_true", help="print the forms and exit")
+    args = ap.parse_args(argv)
+    if args.list:
+        print("\n".join(FORMS))
+        return []
+    rows = bench(tuple(args.forms) or tuple(FORMS), args.device, args.small, args.n, args.reps,
+                 args.profile)
+    for r in rows:
+        shape = "x".join(map(str, r["shape"]))
+        print(f"{r['form']:26s} {shape:>12s} {r['ms']:9.4f} ms ({r['ms_flag_each_call']:.4f} "
+              f"reading the flag each call; plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us) exact, on {r['where']}")
+        for name, ms, count in r.get("device", []):
+            print(f"    {ms:9.4f} ms x{count:g}  {name}")
+    print(json.dumps(rows))
+    return rows
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
+    sys.exit(0)

@@ -81,7 +81,7 @@ def roi_rows():
     crops = gather_crops(image, torch.from_numpy(wl["origins"]).to("cuda"), wl["unit_hw"])
     seg = SegmentationParams().validated()
     masks = engine._segment(crops, seg, wl["exclusions"], None, True)[0]
-    _, st = engine._defect_roi(masks, DefectParams().validated())
+    _, st = engine._defect_roi(masks, DefectParams().validated().erode_px)
     return crops, st[:, 4].contiguous(), st[:, 5].contiguous()
 
 
