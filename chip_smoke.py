@@ -16,12 +16,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (48 units of 315x316: the seg and ROI tails, the median residual, the
    blob filter, Canny's strong/candidate planes for the flood, the
    inverted seg masks for its border form, candidate and fill planes for
-   the labeling, and one unit of the diagnostic pass); the whole-image
-   route's inputs (the standard image as one 1x3000x4096 unit: kernels B,
-   D and E on whole planes, kernel F on the labels of the seg mask and of
-   the ROI, kernel G on the defect tail's fill labels, top-level blobs and
+   the labeling, and one unit of the diagnostic pass); kernel B also at k =
+   45, the largest it takes; the whole-image route's inputs (the standard
+   image as one 1x3000x4096 unit: kernels B (k = 21 and 45), D and E on
+   whole planes, kernel F on the labels of the seg mask and of the ROI,
+   kernel G on the defect tail's fill labels, top-level blobs and
    exterior); kernel H's full median at k = 47, 49 and 101 on the 48 units
-   and at k = 47 on the whole plane; kernel I's close/open, open and 13x13
+   and at k = 47 on the whole plane, at k = 101 and 301 above the unit and
+   at k = 46341 (its 64-bit bins) on small planes; kernel I's close/open, open and 13x13
    erode forms on the 48 units and on the whole plane; kernel J on the 48
    units' eroded seg masks with an empty and a full unit, and on the one
    unit of the erosion preview; kernel K (the chained seg tail, zone and
@@ -32,11 +34,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    large for their shared-memory layout (the global-scratch variant);
    seeded random planes of odd sizes with an empty and a full unit, and a
    long 1-px serpentine; then the ``cuda``-marked tests of the Otsu kernel,
-   of the redesigned A, K and C and of the redesigned D and E
-   (``tests/test_torch_otsu.py``, ``tests/test_torch_cuda.py``,
-   ``tests/test_torch_uf.py``: word-edge widths, tile seams and corners,
-   staircases, spirals, serpentines, solid planes, real Canny edges) in one
-   pytest subprocess;
+   of the redesigned A, K and C, of the redesigned D and E and of the
+   redesigned B and H (``tests/test_torch_otsu.py``,
+   ``tests/test_torch_cuda.py``, ``tests/test_torch_uf.py``,
+   ``tests/test_torch_median_hist.py``: word-edge widths, tile seams and
+   corners, staircases, spirals, serpentines, solid planes, real Canny
+   edges, the sliding-histogram walk's strips and edges) in one pytest
+   subprocess;
 4. every path on the card, each driven with the launch counts set to 0 just
    before it and read just after, and held field by field against the same
    engine on ``device="cpu"``: ``engine.inspect_image`` for the four
@@ -74,7 +78,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. times on the card: each kernel vs its plain version (CUDA events, median
    of repeated runs at the paths' shapes, the whole planes included; the
    kernels with a bound flag share one, read after the timings) beside
-   its bound (the bytes the call must move at 3.35 TB/s), each combo's
+   its bound (the bytes the call must move at 3.35 TB/s; for B and H also
+   their design's floor, its operation count at the int32 issue rate,
+   printed beside the times and kept out of the ``kernels`` line),
+   each combo's
    ``inspect_image`` steady-state wall ms/image (host image in, host
    results out), the walls of ``segment_units`` and ``inspect_units`` on one
    4096x3000 unit (host arrays in, host results out; not ``bench.py``'s
@@ -111,6 +118,14 @@ ROOT = Path(__file__).resolve().parent
 REPS_KERNEL = 10
 REPS_E2E = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+# H100 SXM int32 issue rate: 64 int32 lanes an SM a clock (the Hopper
+# architecture white paper) x 132 SMs x 1.98 GHz boost
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# the sliding-histogram walk of kernels B and H (csrc/median_hist.cuh):
+# operations a sample (byte read, bin address, shared atomic, compare, add)
+# and a pixel's query (16 shared reads and their scan)
+WALK_OPS_PER_SAMPLE = 5
+WALK_OPS_PER_QUERY = 48
 COMBOS = (("otsu", "threshold"), ("adaptive", "threshold"), ("otsu", "canny"),
           ("adaptive", "canny"))
 SHIFTED = {("otsu", "threshold"), ("adaptive", "canny")}
@@ -149,7 +164,7 @@ STREAM_CHAIN_HOME = "stream chained, no anchors"
 STREAM_REPEATS = 3  # the timed stream: the frames this many times over
 # kernel L's path: the median-probe tool's sweep
 PROBE_HOME = "median probe tool"
-PROBE_FORM = "baseline 32x8"  # kernel B's own tile: L's top-level numbers
+PROBE_FORM = "baseline 32x8"  # kernel B's tile in L's design: L's top-level numbers
 
 
 def fail(msg: str) -> None:
@@ -245,6 +260,21 @@ def roi_rows_bytes(x, k: int, row_lo, row_hi) -> int:
     lo, hi = row_lo.cpu().long(), row_hi.cpu().long()
     rows = ((hi + r).clamp(max=h) - (lo - r).clamp(min=0)).clamp(min=0)
     return int(torch.where(hi > lo, rows, 0).sum()) * w * x.element_size()
+
+
+def walk_ops(rows, h: int, w: int, k: int, strip: int) -> int:
+    """Operations the sliding-histogram walk of kernels B and H does on
+    planes of h x w whose units walk ``rows`` rows each, in strips of
+    ``strip`` rows: each strip's warm-up adds min(k, h) rows of min(k, w)
+    samples, each further row 2 min(k, w) (edge repeats not counted), and
+    every walked pixel is queried once. The design's own count, not a bound
+    on the function's work."""
+    kc, kr = min(k, w), min(k, h)
+    samples = 0
+    for n in rows:
+        strips = -(-n // strip)
+        samples += w * (strips * kr * kc + (n - strips) * 2 * kc)
+    return WALK_OPS_PER_SAMPLE * samples + WALK_OPS_PER_QUERY * w * sum(rows)
 
 
 def http_json(srv, op: str, body: dict | None = None) -> dict:
@@ -379,6 +409,7 @@ def main() -> int:
         median_blur_u8_plain,
         median_residual_mask,
         median_residual_mask_plain,
+        strip_rows,
     )
     from tpu_inspect_torch.ops.morphology import (
         apply_stages,
@@ -573,7 +604,10 @@ def main() -> int:
              (seg_masks,)),
             ("global scratch 2x401x421", lambda f: f(big_u, co, fill=True), (big_u,)),
         ],
-        "median_residual": [],
+        "median_residual": [
+            ("k 45, roi rows", lambda f: f(crops, 45, t_res, row_lo, row_hi),
+             (roi_rows_bytes(crops, 45, row_lo, row_hi), row_lo, row_hi)),
+        ],
         "blob_filter": [
             ("canny form (roi, no open)",
              lambda f: f(edges, max_x2, min_x2=min_x2, roi=roi, pre_open=False),
@@ -621,6 +655,8 @@ def main() -> int:
         "median_residual": [
             ("whole plane, ROI rows", lambda f: f(whole, k, t_res, row_lo_w, row_hi_w),
              (roi_rows_bytes(whole, k, row_lo_w, row_hi_w), row_lo_w, row_hi_w)),
+            ("whole plane, ROI rows, k 45", lambda f: f(whole, 45, t_res, row_lo_w, row_hi_w),
+             (roi_rows_bytes(whole, 45, row_lo_w, row_hi_w), row_lo_w, row_hi_w)),
         ],
         "propagate": [
             ("whole seg hole fill", lambda f: f(None, free_w, False, border_seed=True), (free_w,)),
@@ -654,6 +690,30 @@ def main() -> int:
             ("whole plane", lambda f: f(x_w), (x_w,)),
         ],
     }
+    # the walk's forms (kernels B and H): the rows each unit walks, for the
+    # design's operation count (walk_ops): B's ROI rows, H's every row
+    def roi_rows(lo, hi, n_rows):
+        return [max(0, min(b, n_rows) - max(a, 0)) for a, b in zip(lo.tolist(), hi.tolist())]
+
+    hh_w, ww_w = whole.shape[1:]
+    walk_forms = {
+        ("median_residual", "roi rows"): (roi_rows(row_lo, row_hi, h), h, w, k),
+        ("median_residual", "k 45, roi rows"): (roi_rows(row_lo, row_hi, h), h, w, 45),
+        ("median_residual", "whole plane, ROI rows"):
+            (roi_rows(row_lo_w, row_hi_w, hh_w), hh_w, ww_w, k),
+        ("median_residual", "whole plane, ROI rows, k 45"):
+            (roi_rows(row_lo_w, row_hi_w, hh_w), hh_w, ww_w, 45),
+        **{("median_blur", f"k {kb}, 48 units"): ([h] * crops.shape[0], h, w, kb)
+           for kb in (BIG_K, 49, 101)},
+        ("median_blur", f"k {BIG_K}, whole plane"): ([hh_w], hh_w, ww_w, BIG_K),
+    }
+
+    def design_floor(name, label):
+        """(ops per walked pixel, ms at the int32 issue rate) of a walk form."""
+        rows, hh, ww, kk = walk_forms[(name, label)]
+        ops = walk_ops(rows, hh, ww, kk, strip_rows(name, len(rows), hh, ww))
+        return ops / max(1, ww * sum(rows)), ops / INT32_OPS_PER_S * 1e3
+
     def probe_plain(x_, k_, thr_, lo=None, hi=None, mode="baseline", tile=None):
         """Kernel L's plain version: kernel B's (its baseline mode only; the
         ablations are timed, never compared)."""
@@ -740,6 +800,8 @@ def main() -> int:
             ("seg_tail", "no stages", lambda f: f(blobs_t, (), out_largest=True)),
             ("median_residual", "k 9", lambda f: f(gray, 9, 24, lo_r, hi_r)),
             ("median_residual", "k 21", lambda f: f(gray, 21, 0)),
+            ("median_residual", "k 3, thr 255", lambda f: f(gray, 3, 255, lo_r, hi_r)),
+            ("median_residual", "k 45, 0/255", lambda f: f(blobs_t, 45, 0, lo_r, hi_r)),
             ("blob_filter", "roi+open", lambda f: f(blobs_t, mx_r, min_x2=6, roi=roi_r, pre_open=True)),
             ("blob_filter", "plain", lambda f: f(blobs_t, mx_r, min_x2=0)),
             ("propagate", "seeded 8-conn", lambda f: f(seeds, full, True)),
@@ -752,8 +814,7 @@ def main() -> int:
             ("blob_select", "random", lambda f: f(*regions_r, mx_r, min_x2=6)),
             ("blob_select", "random, min 0", lambda f: f(*regions_r, mx_r, min_x2=0)),
             ("median_blur", "k 3", lambda f: f(gray, 3)),
-            ("median_blur", "k 101, above the unit", lambda f: f(gray, 101)),
-            ("median_blur", "k 301, through L1", lambda f: f(gray, 301)),
+            ("median_blur", "k 47, 0/255", lambda f: f(blobs_t, 47)),
             ("morph", "close/open 7", lambda f: f(blobs_t, close_open_stages(7))),
             ("morph", "erode 25", lambda f: f(full, rect_erode_stages(25))),
             ("morph", "open 3", lambda f: f(full, open3)),
@@ -770,12 +831,27 @@ def main() -> int:
             ("otsu", "random", lambda f: f(gray)),
             ("otsu", "two-level", lambda f: f(blobs_t)),
         ]
+        if u == 3:
+            # windows above the unit, on the first planes only (the plain
+            # version's per-row loop is long at these k): 16- and 32-bit bins
+            cases += [
+                ("median_blur", "k 101, above the unit", lambda f: f(gray, 101)),
+                ("median_blur", "k 301, 32-bit bins", lambda f: f(gray, 301)),
+            ]
         for name, label, call in cases:
             fast, plain = kernel_fns[name]
             got, ref = call(fast), call(plain)
             torch.cuda.synchronize()
             errs[name] = max(errs[name], compare(name, label, got, ref))
         say(f"phase 3: random {u}x{hh}x{ww} planes bit-exact for all kernels")
+    # kernel H's 64-bit form: k = 46341, k*k > 2^31, on a 2x3x5 plane (the
+    # plain version one output row a step, bounding its padded cumsum)
+    tiny = torch.from_numpy(np.random.RandomState(5).randint(0, 256, (2, 3, 5),
+                                                             dtype=np.uint8)).to(dev)
+    errs["median_blur"] = max(errs["median_blur"], compare(
+        "median_blur", "64-bit bins", median_blur_u8(tiny, 46341),
+        median_blur_u8_plain(tiny, 46341, rows_per_step=1)))
+    say("phase 3: median_blur [k 46341, 64-bit bins] 2x3x5 bit-exact vs plain")
     # kernel J's global-scratch form: units whose 9 bytes a 2x2 block exceed
     # a block's shared memory
     big_j = torch.from_numpy(np.random.RandomState(1).rand(2, 401, 421) > 0.55).to(dev)
@@ -809,11 +885,15 @@ def main() -> int:
     # (word-edge widths, staircases, spirals, erode 200, real Canny edges,
     # the global-scratch variant) and of the redesigned D and E (tile seams
     # and corners, word-edge widths, H = 1, solid planes, a U = 3 batch, a
-    # spiral and a serpentine), and the sync checks, each against its plain
-    # version; the file's other tests repeat this script's own checks
+    # spiral and a serpentine), of the redesigned B and H (widths 1, 31-33
+    # and 315-316, H = 1, strips ending inside the ROI rows, empty and full
+    # row ranges, flat and 0/255 planes, thr 0 and 255, k from 3 to 301 and
+    # 46341, units never mixed), and the sync checks, each against its plain
+    # version; the files' other tests repeat this script's own checks
     mark("phase 3: the cuda-marked tests start")
-    tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py"]
-    selected = "otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_"
+    tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
+             "tests/test_torch_median_hist.py"]
+    selected = "otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist"
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
          "--noconftest", "-p", "no:cacheprovider"],
@@ -1393,8 +1473,14 @@ def main() -> int:
             pms = cuda_ms(lambda c=call: c(plain), REPS_KERNEL)
             bound = (nbytes(inputs) + out_bytes[(name, label)]) / HBM_BYTES_PER_S * 1e3
             rows.append({"form": label, "ms": ms, "plain_ms": pms, "bound_ms": bound})
+            floor = ""
+            if (name, label) in walk_forms:
+                # a model's count, not a measurement: printed, kept out of
+                # the kernels line
+                per_px, floor_ms = design_floor(name, label)
+                floor = f", design floor {floor_ms:.4f} ms at {per_px:.0f} ops/px"
             say(f"phase 5: {name} [{label}] {ms:.4f} ms (plain {pms:.4f} ms, bound "
-                f"{bound * 1e3:.2f} us) on {card}")
+                f"{bound * 1e3:.2f} us{floor}) on {card}")
         return rows
 
     times = {name: tuple(timed(name, cases.get(name, []))

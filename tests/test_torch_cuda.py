@@ -266,8 +266,8 @@ def test_whole_route_cuda_matches_cpu(cuda, method, monkeypatch):
 
 @pytest.mark.parametrize("k", [3, 47, 49, 101, 301])
 def test_median_blur_matches_plain(cuda, k):
-    """Kernel H: shared-memory tiles up to k = 201, reads through L1 above
-    (k = 301 on these planes), and windows larger than the unit."""
+    """Kernel H: 16-bit bins up to k = 255 (k = 3 to 101 here), 32-bit bins
+    above (k = 301), and windows larger than the unit."""
     rng = np.random.RandomState(13)
     x = torch.from_numpy(rng.randint(0, 256, (3, 37, 53), dtype=np.uint8)).to(cuda)
     x[1] = 7  # a flat unit

@@ -1,5 +1,5 @@
 """The kernel rig ``tpu_inspect_torch.tools.kernel_bench`` on the CPU, at
-its small size: every form of kernels D and E builds its planes through
+its small size: every form of kernels B, D, E and H builds its planes through
 the port's engine, equals its plain version exactly and gets a time (a
 host wall here, labelled so; device times come from the card)."""
 

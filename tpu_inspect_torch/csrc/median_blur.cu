@@ -7,141 +7,89 @@
 // (k*k + 1) / 2 (1-based) value of the k*k samples
 // x[u, clamp(y + dy, 0, H-1), clamp(x + dx, 0, W-1)], |dy|, |dx| <= k / 2,
 // for any odd k >= 3 (k = 1 never reaches the kernel: the wrapper returns
-// its input).
+// its input), also where k exceeds H or W.
 //
-// What bounds it on this card: operations, not bytes. A thread per output
-// pixel finds the median by bisection over the 8 value bits (the median is
-// >= c iff fewer than rank samples are <= c - 1), so each pixel counts its
-// window 8 times: 8 * k * k shared-memory byte reads and compares (17.7 K at
-// k = 47), against 2 bytes of device memory per pixel. The TPU kernel's
+// Design: the sliding-histogram walk of median_hist.cuh. A block is one
+// warp of 32 adjacent columns of one unit, walking one strip of S = 128
+// rows (ops/median.py: strip_rows; the fastest in the rig,
+// tools/kernel_bench.py --strips, on the H100 at k = 47 and 101 on 48
+// units and at k = 47 on a whole plane: the warm-up of k * k samples costs
+// 17 a row at k = 47 against 94 a step); block (x, s, u) walks rows s S..
+// (s + 1) S - 1 of unit u. Its bins are 16 bits while k * k < 65536 (16 KB
+// a block, 14 blocks an SM), 32 bits while k * k < 2^31 (32 KB), 64 bits
+// beyond (64 KB, above the 48 KB default: opted in); the counts and the
+// rank are int32 while k * k < 2^31 and int64 beyond. The TPU kernel's
 // per-column histograms, band matmuls and bf16 one-hot counts are dropped:
 // integer counts are exact by construction.
 //
-// Design: a 32 x 8 block of outputs per CTA. A clamped window repeats the
-// plane's edge rows and columns, so a window is counted over its distinct
-// in-plane rows and columns, the edge ones weighted by their repeats: a
-// step costs at most min(k, H) x min(k, W) reads, whatever k is. The
-// in-plane part of the block's tile plus halo sits in shared memory when
-// it fits in 48 KB (k <= 201 at any plane size); otherwise the kernel reads
-// the plane itself through L1. A row's count fits int32 (at most k); the
-// window's count is int32 while k * k < 2^31 and int64 beyond.
+// What bounds it on this card: shared-memory atomics and L1 byte reads,
+// not device memory (2 bytes a pixel). Per output pixel: 2 min(k, W)
+// samples a step (94 at k = 47) plus the warm-up's min(k, H) min(k, W)
+// over S (17 at k = 47), each one L1 byte read, one shared atomic and a
+// compare-add, and a 16-read query. The design it replaced bisected the
+// 8 value bits, counting its window 8 times (8 k^2 = 17.7 K compares a
+// pixel at k = 47); here no tile bounds k, and a step costs 2 min(k, W)
+// clamped updates at any k.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "median_hist.cuh"
+
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
-constexpr long long kMaxSmem = 48 * 1024;
-
-// #{window samples <= t}: rows i0..i1 and columns j0..j1 of the plane are
-// in the window once each, row 0 / H-1 and column 0 / W-1 a further
-// top / bot and left / right times. row(i) points at the plane's row i,
-// indexed by plane column.
-template <typename Count, typename RowPtr>
-__device__ inline Count count_le(RowPtr row, int H, int W, int i0, int i1,
-                                 int j0, int j1, int top, int bot, int left,
-                                 int right, int t) {
-  Count total = 0;
-  for (int i = i0; i <= i1; ++i) {
-    const uint8_t* s = row(i);
-    int c = 0;
-    int j = j0;
-    for (; j + 3 <= j1; j += 4) {
-      c += (s[j] <= t) + (s[j + 1] <= t) + (s[j + 2] <= t) + (s[j + 3] <= t);
-    }
-    for (; j <= j1; ++j) c += s[j] <= t;
-    // a repeated edge column is in the tile (j0 == 0 or j1 == W - 1 then)
-    if (left) c += left * (s[0] <= t);
-    if (right) c += right * (s[W - 1] <= t);
-    const int w = 1 + (i == 0 ? top : 0) + (i == H - 1 ? bot : 0);
-    total += static_cast<Count>(w) * c;
-  }
-  return total;
+template <int BITS, typename Count>
+__global__ void __launch_bounds__(mh::kThreads)
+median_blur_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int H, int W,
+                   int r, Count rank, int strip) {
+  using Word = typename mh::Bins<BITS>::Word;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int c = blockIdx.x * mh::kThreads + threadIdx.x;
+  const size_t off = static_cast<size_t>(blockIdx.z) * H * W;
+  uint8_t* o = out + off;
+  const int y0 = blockIdx.y * strip;
+  mh::walk<BITS, Count>(x + off, H, W, r, c, y0, min(H, y0 + strip), rank,
+                        reinterpret_cast<Word*>(smem_raw), [&](int y, int m) {
+                          o[static_cast<size_t>(y) * W + c] = static_cast<uint8_t>(m);
+                        });
 }
 
-template <typename Count, bool kShared>
-__global__ void __launch_bounds__(kTileW * kTileH)
-median_blur_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
-                   int H, int W, int r, Count rank) {
-  extern __shared__ uint8_t tile[];
-  const int u = blockIdx.z;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const size_t off = static_cast<size_t>(u) * H * W;
-  const uint8_t* img = x + off;
-  // the in-plane rows and columns any window of this block reads
-  const int ty0 = max(0, y0 - r);
-  const int ty1 = min(H - 1, y0 + kTileH - 1 + r);
-  const int tx0 = max(0, x0 - r);
-  const int tx1 = min(W - 1, x0 + kTileW - 1 + r);
-  const int sw = tx1 - tx0 + 1;
-  if (kShared) {
-    const int n = (ty1 - ty0 + 1) * sw;
-    for (int j = threadIdx.y * kTileW + threadIdx.x; j < n; j += kTileW * kTileH) {
-      const int jy = j / sw;
-      tile[j] = img[static_cast<size_t>(ty0 + jy) * W + tx0 + (j - jy * sw)];
-    }
-    __syncthreads();
-  }
-  const int gx = x0 + threadIdx.x;
-  const int gy = y0 + threadIdx.y;
-  if (gx >= W || gy >= H) return;
-  const int i0 = max(0, gy - r);
-  const int i1 = min(H - 1, gy + r);
-  const int j0 = max(0, gx - r);
-  const int j1 = min(W - 1, gx + r);
-  const int top = max(0, r - gy);
-  const int bot = max(0, gy + r - (H - 1));
-  const int left = max(0, r - gx);
-  const int right = max(0, gx + r - (W - 1));
-  int m = 0;
-  for (int b = 7; b >= 0; --b) {
-    const int c = m | (1 << b);
-    Count n;
-    if (kShared) {
-      auto row = [&](int i) { return tile + (i - ty0) * sw - tx0; };
-      n = count_le<Count>(row, H, W, i0, i1, j0, j1, top, bot, left, right, c - 1);
-    } else {
-      auto row = [&](int i) { return img + static_cast<size_t>(i) * W; };
-      n = count_le<Count>(row, H, W, i0, i1, j0, j1, top, bot, left, right, c - 1);
-    }
-    if (n < rank) m = c;
-  }
-  out[off + static_cast<size_t>(gy) * W + gx] = static_cast<uint8_t>(m);
-}
-
-template <typename Count>
-cudaError_t launch(const uint8_t* x, uint8_t* out, int U, int H, int W, int r,
+template <int BITS, typename Count>
+cudaError_t launch(const uint8_t* x, uint8_t* out, int U, int H, int W, int r, int strip,
                    cudaStream_t s) {
   const long long k = 2LL * r + 1;
   const Count rank = static_cast<Count>((k * k + 1) / 2);
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, U);
-  const long long sh = H < kTileH + 2LL * r ? H : kTileH + 2LL * r;
-  const long long sw = W < kTileW + 2LL * r ? W : kTileW + 2LL * r;
-  if (sh * sw <= kMaxSmem) {
-    median_blur_kernel<Count, true><<<grid, block, static_cast<size_t>(sh * sw), s>>>(
-        x, out, H, W, r, rank);
-  } else {
-    median_blur_kernel<Count, false><<<grid, block, 0, s>>>(x, out, H, W, r, rank);
+  const size_t smem = mh::Bins<BITS>::kSmem;
+  auto* kernel = median_blur_kernel<BITS, Count>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return rc;
   }
+  const dim3 grid((W + mh::kThreads - 1) / mh::kThreads, (H + strip - 1) / strip, U);
+  kernel<<<grid, mh::kThreads, smem, s>>>(x, out, H, W, r, rank, strip);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int tik_median_blur(const void* x, void* out, int U, int H, int W,
-                               int k, void* stream) {
+extern "C" int tik_median_blur(const void* x, void* out, int U, int H, int W, int k,
+                               int strip, void* stream) {
+  if (k < 3 || (k & 1) == 0 || strip < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (U <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
   const int r = k / 2;
   const auto* src = static_cast<const uint8_t*>(x);
   auto* dst = static_cast<uint8_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long kk = static_cast<long long>(k) * k;
-  const cudaError_t rc = kk < (1LL << 31) ? launch<int>(src, dst, U, H, W, r, s)
-                                          : launch<long long>(src, dst, U, H, W, r, s);
+  cudaError_t rc;
+  if (kk < (1LL << 16)) {
+    rc = launch<16, int>(src, dst, U, H, W, r, strip, s);
+  } else if (kk < (1LL << 31)) {
+    rc = launch<32, int>(src, dst, U, H, W, r, strip, s);
+  } else {
+    rc = launch<64, long long>(src, dst, U, H, W, r, strip, s);
+  }
   return static_cast<int>(rc);
 }

@@ -1,23 +1,27 @@
-// median_probe (kernel L): kernel B's median residual, templated on an
-// ablation mode and the tile shape, for the sweep of the median-probe tool
+// median_probe (kernel L): the median residual in kernel B's earlier
+// per-pixel window design (median_window.cuh; B itself now walks a sliding
+// histogram, median_hist.cuh), templated on an ablation mode and the tile
+// shape, for the sweep of the median-probe tool
 // (tpu_inspect_torch/tools/median_probe.py).
 //
 // Replaces tools/median_probe.py: probe, the TPU's ablation probe of its
 // median-residual kernel (histogram update, query mask, band matmul, output
-// write). Kernel B has none of those pieces, so the modes strip pieces of
-// B's own design instead (median_window.cuh, the body B runs):
-//   0 baseline  B's computation, bit-exact against it at every tile shape;
+// write). The port has none of those pieces, so the modes strip pieces of
+// B's earlier per-pixel window design instead (median_window.cuh):
+//   0 baseline  the whole computation, bit-exact against B's plain version
+//               at every tile shape;
 //   1 nofill    no global -> shared tile fill (counts read whatever the
 //               shared memory holds);
 //   2 nocount   no k x k count loop: the centre pixel's compare g > thr is
 //               written instead;
 //   3 norows    no ROI-row early exit: every row of every unit is computed.
 // Modes 1-3 are wrong by construction: they are timed, never compared. The
-// difference of each to the baseline attributes B's time to its pieces;
+// difference of each to the baseline attributes that design's time to
+// its pieces;
 // the tile shapes (TW x TH threads, one output pixel each) sweep its halo
 // overhead ((TH + 2r)(TW + 2r) / (TH TW) loads a pixel) against its
-// parallelism. Bound, as for B: the shared-memory reads of the count loop,
-// not device memory.
+// parallelism. Bound: the shared-memory reads of the count loop, not
+// device memory.
 
 #include <cstdint>
 

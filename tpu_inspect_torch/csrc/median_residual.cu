@@ -1,55 +1,88 @@
-// median_residual: 255 where |x - medianBlur_k(x)| > thr, on Hopper (sm_90a).
+// median_residual (kernel B): 255 where |x - medianBlur_k(x)| > thr, on
+// Hopper (sm_90a).
 //
 // Replaces tpu_inspect/ops/median_pallas.py: median_residual_mask_pallas
-// (_median_residual_kernel). The median value itself is never needed, only
-// whether it leaves [g - thr, g + thr]: with rank = (k*k + 1) / 2,
-//   median < g - thr  <=>  #{v <= g - thr - 1} >= rank
-//   median > g + thr  <=>  #{v <= g + thr}     <  rank
-// so each output pixel counts its k x k window twice (BORDER_REPLICATE by
-// clamped loads). Rows outside [row_lo, row_hi) of a unit are written 0
-// (the defect path ANDs the result with the ROI, whose rows those are not).
+// (_median_residual_kernel) and median_residual_mask_tiled (the same
+// function on a whole 3000x4096 plane). For odd k with k * k < 2048 (16-bit
+// bins always hold k * k) and BORDER_REPLICATE, the median m of the k x k
+// window of each pixel g in rows [row_lo, row_hi) of its unit is computed
+// exactly and the output is |g - m| > thr: the same as the TPU kernel's two
+// rank tests (m < g - thr <=> #{v <= g - thr - 1} >= rank, and m > g + thr
+// <=> #{v <= g + thr} < rank, rank = (k * k + 1) / 2). The other rows of a
+// unit are written 0 by the same launch (the defect path ANDs the result
+// with the ROI, whose rows those are not).
 //
-// What bounds it on this card: shared-memory reads, k*k per output pixel
-// (441 for the main path's k = 21), not device memory (each input byte is
-// read into shared memory about 1 + 2r/TILE_H times). Design: a thread per
-// output pixel, a (TILE_H + 2r) x (TILE_W + 2r) uint8 tile per block, and
-// tiles wholly outside the unit's ROI rows store zeros and stop
-// (median_window.cuh, whose body kernel L's probe sweep shares). The TPU
-// kernel's histogram state, bf16 band matmuls and cdf descent are dropped:
-// integer counts are exact by construction.
+// Design: the sliding-histogram walk of median_hist.cuh. A block is one
+// warp of 32 adjacent columns of one unit (16 KB of bins: 14 blocks an
+// SM), walking one strip of S ROI rows; block (x, s, u) walks rows
+// row_lo + s S.. of unit u and writes the zeros of rows s S..(s + 1) S - 1
+// outside [row_lo, row_hi), so the grid (ceil(H / S) strips) covers every
+// row without the host reading the row bounds. S (ops/median.py:
+// strip_rows) is 32 on grid units and 16 on planes above 2^20 px, the
+// fastest in the rig (tools/kernel_bench.py --strips) on the H100: longer
+// strips spread the k * k warm-up thinner, shorter ones fill more of the
+// card, and a whole plane's ROI is a few hundred of its 3000 rows. The TPU
+// kernel's bf16 band matmuls and cdf descent are dropped: integer counts.
+//
+// What bounds it on this card: shared-memory atomics and L1 byte reads,
+// not device memory. Per output pixel at k = 21 and S = 32: 42 samples a
+// step plus the 441-sample warm-up over 32 rows (about 56), each one L1
+// byte read, one shared atomic and a compare-add, then 16 shared reads
+// for the query; the per-pixel window design it replaced read 441 window
+// bytes and made 882 compares a pixel (median_window.cuh, which kernel L
+// keeps as its baseline).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "median_window.cuh"
+#include "median_hist.cuh"
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
+constexpr int kMaxK = 45;  // k * k < 2048, the wrapper's bound
 
-__global__ void __launch_bounds__(kTileW * kTileH)
-median_residual_kernel(const uint8_t* __restrict__ x,
-                       const int* __restrict__ row_lo,
-                       const int* __restrict__ row_hi,
-                       uint8_t* __restrict__ out, int H, int W, int k, int thr) {
-  tik::median_residual_tile<tik::kMedianBaseline, kTileW, kTileH>(x, row_lo, row_hi, out,
-                                                                  H, W, k, thr);
+__global__ void __launch_bounds__(mh::kThreads)
+median_residual_kernel(const uint8_t* __restrict__ x, const int* __restrict__ row_lo,
+                       const int* __restrict__ row_hi, uint8_t* __restrict__ out, int H,
+                       int W, int k, int thr, int strip) {
+  using Bins = mh::Bins<16>;
+  __shared__ Bins::Word smem[Bins::kSmem / sizeof(Bins::Word)];
+  const int u = blockIdx.z;
+  const int c = blockIdx.x * mh::kThreads + threadIdx.x;
+  const size_t off = static_cast<size_t>(u) * H * W;
+  const uint8_t* img = x + off;
+  uint8_t* o = out + off;
+  const int lo = max(row_lo[u], 0);
+  const int hi = min(row_hi[u], H);
+  const int z0 = blockIdx.y * strip;
+  if (c < W) {
+    for (int y = z0; y < min(H, z0 + strip); ++y) {
+      if (y < lo || y >= hi) o[static_cast<size_t>(y) * W + c] = 0;
+    }
+  }
+  if (hi - lo <= z0) return;  // no ROI row left for this strip (block-uniform)
+  const int y0 = lo + z0;
+  const int y1 = min(hi, y0 + strip);
+  mh::walk<16, int>(img, H, W, k / 2, c, y0, y1, (k * k + 1) / 2, smem, [&](int y, int m) {
+    const size_t i = static_cast<size_t>(y) * W + c;
+    o[i] = abs(static_cast<int>(img[i]) - m) > thr ? 255 : 0;
+  });
 }
 
 }  // namespace
 
 extern "C" int tik_median_residual(const void* x, const void* row_lo,
                                    const void* row_hi, void* out, int U, int H,
-                                   int W, int k, int thr, void* stream) {
+                                   int W, int k, int thr, int strip, void* stream) {
+  if (k < 1 || k > kMaxK || (k & 1) == 0 || strip < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (U > 0 && H > 0 && W > 0) {
-    const dim3 block(kTileW, kTileH);
-    const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, U);
-    median_residual_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid((W + mh::kThreads - 1) / mh::kThreads, (H + strip - 1) / strip, U);
+    median_residual_kernel<<<grid, mh::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), static_cast<const int*>(row_lo),
-        static_cast<const int*>(row_hi), static_cast<uint8_t*>(out), H, W, k,
-        thr);
+        static_cast<const int*>(row_hi), static_cast<uint8_t*>(out), H, W, k, thr, strip);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
-// The body of kernel B (median_residual.cu), shared with kernel L
-// (median_probe.cu), which instantiates it in ablation modes and at other
-// tile shapes: one thread per output pixel of a TW x TH tile, the tile
-// plus its halo in shared memory, two rank counts over the k x k window.
+// Kernel L's body (median_probe.cu), which instantiates it in ablation
+// modes and at several tile shapes: kernel B's earlier per-pixel window
+// design, one thread per output pixel of a TW x TH tile, the tile plus its
+// halo in shared memory, two rank counts over the k x k window. Kernel B
+// itself now runs the sliding-histogram walk of median_hist.cuh; L keeps
+// this design as the baseline its ablations are measured against.
 //
 // With rank = (k*k + 1) / 2, the median leaves [g - thr, g + thr] iff
 //   #{v <= g - thr - 1} >= rank  or  #{v <= g + thr} < rank,
@@ -17,7 +19,7 @@ namespace tik {
 
 constexpr int kMedianMaxR = 22;  // k <= 45 (k*k < 2048), the wrappers' bound
 
-// kMedianBaseline is B's computation. The others are kernel L's
+// kMedianBaseline is the full computation. The others are kernel L's
 // ablations, wrong by construction (timed, never compared):
 //   kMedianNoFill   no global -> shared tile fill;
 //   kMedianNoCount  no k x k count loop: the centre compare g > thr;

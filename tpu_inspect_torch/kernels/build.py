@@ -41,8 +41,8 @@ _SIGNATURES = {
     # x, thr, prog, out, stats, scratch, scratch words, err, U, H, W,
     # has_thr, fill, out_largest, stream
     "tik_seg_tail": (_P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, row_lo, row_hi, out, U, H, W, k, thr, stream
-    "tik_median_residual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, row_lo, row_hi, out, U, H, W, k, thr, strip rows, stream
+    "tik_median_residual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # fg, roi, max_x2, table, prog, out, area, scratch, scratch words, err,
     # U, H, W, min_x2, has_roi, stream
     "tik_blob_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _P),
@@ -56,8 +56,8 @@ _SIGNATURES = {
     # fill_labels, top, ext, max_x2, table, out, area, sums, err, U, H, W,
     # min_x2, stream
     "tik_blob_select": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, out, U, H, W, k, stream
-    "tik_median_blur": (_P, _P, _I, _I, _I, _I, _P),
+    # x, out, U, H, W, k, strip rows, stream
+    "tik_median_blur": (_P, _P, _I, _I, _I, _I, _I, _P),
     # in, out, stage, U, H, W, erode, rx, ry, tile rows, stream
     "tik_morph_stage": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # fg, mask, stats, scratch, err, U, H, W, stream

@@ -17,9 +17,14 @@ tensors and runs :func:`median_residual_mask_plain` for CPU tensors.
 :func:`median_blur_u8` is the full median value for any odd k (the port of
 :func:`tpu_inspect.ops.median.median_blur_u8`, whose TPU kernel is
 ``median_pallas.py: median_blur_u8_pallas``): the defect pass's
-background for windows with k*k >= 2048, where the two rank queries of
-kernel B do not apply. It launches ``csrc/median_blur.cu`` for CUDA tensors
-and runs :func:`median_blur_u8_plain` for CPU tensors.
+background for windows with k*k >= 2048. It launches
+``csrc/median_blur.cu`` for CUDA tensors and runs
+:func:`median_blur_u8_plain` for CPU tensors.
+
+Both kernels run the sliding-histogram walk of ``csrc/median_hist.cuh``:
+a thread per column walks a strip of :func:`strip_rows` rows, keeping its
+window's histogram and reading the median from it (kernel B then compares
+|g - median| with thr, which equals the two rank tests above).
 """
 
 from __future__ import annotations
@@ -30,6 +35,43 @@ from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes, check_vecto
 
 # elements of the [U, rows, W, k, k] comparison block per chunk (~64 MB)
 _CHUNK_ELEMS = 1 << 26
+
+
+# rows S one thread of kernels B and H walks down a column, the rig's
+# choice on the H100 (tools/kernel_bench.py --strips, PERF.md §6): each
+# strip warms its window up with k*k samples against 2k a step, so longer
+# strips do less work, but a launch's strips (one warp each) must also keep
+# the card's 132 SMs busy. S starts at B's 32 (16 on planes above 2^20 px,
+# whose ROI is a few hundred of their 3000 rows: B's ROI rows stay on the
+# card, unknown to the host) or H's 128, and halves, down to 8, while the
+# launch would have fewer than 1024 strips (one unit: the interactive
+# calls).
+BLUR_STRIP_ROWS = 128
+RESIDUAL_STRIP_ROWS = 32
+RESIDUAL_STRIP_ROWS_LARGE = 16
+MIN_STRIP_ROWS = 8
+MIN_STRIPS = 1024
+_LARGE_PX = 1 << 20
+
+
+def strip_rows(kernel: str, u: int, h: int, w: int) -> int:
+    """The default strip rows S of ``kernel`` ("median_residual" or
+    "median_blur") on [u, h, w] planes."""
+    if kernel == "median_blur":
+        strip = BLUR_STRIP_ROWS
+    else:
+        strip = RESIDUAL_STRIP_ROWS_LARGE if h * w > _LARGE_PX else RESIDUAL_STRIP_ROWS
+    warps = u * -(-w // 32)
+    while strip > MIN_STRIP_ROWS and warps * -(-h // strip) < MIN_STRIPS:
+        strip //= 2
+    return strip
+
+
+def _strip(strip, kernel: str, u: int, h: int, w: int) -> int:
+    strip = strip_rows(kernel, u, h, w) if strip is None else int(strip)
+    if strip < 1 or -(-h // strip) >= 65536:
+        raise ValueError(f"{kernel}: strip of {strip} rows for {h} rows beyond the kernel's grid")
+    return strip
 
 
 def _check_k(k: int) -> None:
@@ -81,18 +123,28 @@ def median_residual_mask_plain(x, k: int, thr: int, row_lo=None, row_hi=None):
 def median_residual_mask(x, k: int, thr: int, row_lo=None, row_hi=None):
     """x [U, H, W] uint8 -> [U, H, W] uint8 0/255 residual mask; optional
     ``row_lo``/``row_hi`` [U] int32 bound the processed rows per unit."""
+    return _median_residual(x, k, thr, row_lo, row_hi)
+
+
+def _median_residual(x, k: int, thr: int, row_lo=None, row_hi=None, strip=None):
+    """:func:`median_residual_mask` with the kernel's strip rows given
+    (None: :func:`strip_rows`); the result does not depend on them. The
+    tests and the rig's ``--strips`` sweep call it."""
     check_planes(x, "median_residual")
     _check_k(k)
     u, h, w = x.shape
     row_lo, row_hi = _row_bounds(row_lo, row_hi, u, h, x.device)
     check_vector(row_lo, "median_residual row_lo", u, x.device)
     check_vector(row_hi, "median_residual row_hi", u, x.device)
+    strip = _strip(strip, "median_residual", u, h, w)
     if x.device.type == "cpu":
         return median_residual_mask_plain(x, k, thr, row_lo, row_hi)
+    if u >= 65536:
+        raise ValueError(f"median_residual: {u} units beyond the kernel's grid")
     out = torch.empty_like(x)
     err = build.lib().tik_median_residual(
         x.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(), out.data_ptr(),
-        u, h, w, int(k), int(thr),
+        u, h, w, int(k), int(thr), strip,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("median_residual", err)
@@ -157,18 +209,26 @@ def median_blur_u8(x, k: int):
     clamped-coordinate samples, even when k exceeds H or W; the median is
     the sample of 1-based rank (k*k+1)//2). Any odd k >= 1; k = 1 returns
     ``x``."""
+    return _median_blur(x, k)
+
+
+def _median_blur(x, k: int, strip=None):
+    """:func:`median_blur_u8` with the kernel's strip rows given (None:
+    :func:`strip_rows`); the result does not depend on them. The tests and
+    the rig's ``--strips`` sweep call it."""
     check_planes(x, "median_blur_u8")
     _check_blur_k(k)
     if k == 1:
         return x
+    u, h, w = x.shape
+    strip = _strip(strip, "median_blur", u, h, w)
     if x.device.type == "cpu":
         return median_blur_u8_plain(x, k)
-    u, h, w = x.shape
     if u >= 65536 or k >= 2**31:
         raise ValueError(f"median_blur_u8: {u} units or k={k} beyond the kernel's grid")
     out = torch.empty_like(x)
     err = build.lib().tik_median_blur(
-        x.data_ptr(), out.data_ptr(), u, h, w, int(k),
+        x.data_ptr(), out.data_ptr(), u, h, w, int(k), strip,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("median_blur_u8", err)

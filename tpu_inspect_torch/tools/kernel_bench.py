@@ -1,5 +1,5 @@
-"""Time one form of kernel D or E at a time, checked exact against its plain
-version: the rig to iterate on a kernel without a whole chip_smoke run.
+"""Time one form of kernel B, D, E or H at a time, checked exact against its
+plain version: the rig to iterate on a kernel without a whole chip_smoke run.
 
 The port of ``tools/kernel_bench.py`` (which times the JAX package's Pallas
 kernels one by one). Its planes are ``chip_smoke.py``'s: the standard
@@ -7,19 +7,21 @@ workload's 48 units of 315x316 and the same image as one 1x3000x4096
 unit, made by the port's own engine on the card. Each form is run once
 and held against its plain version (exact: both give integers), then timed
 with CUDA events (``n`` calls in a row, median of ``reps``) beside the
-plain version and its byte bound (each input read once, the output
-written once, at 3.35 TB/s).
+plain version and its byte bound (each input read once, kernel B's only
+on its ROI rows and their halo; the output written once, at 3.35 TB/s).
 
 Usage::
 
     python -m tpu_inspect_torch.tools.kernel_bench [FORM ...] [--n N] [--reps R]
-        [--device cpu] [--small]
+        [--device cpu] [--small] [--strips S,S,...]
 
 With no FORM, every form runs (``--list`` names them). It runs on the card
 unless ``--device cpu`` is given; on the CPU the wrappers run their plain
 versions and the times are host walls of those, not device times.
 ``--small`` builds the planes from a 2x2 grid of 64x64 units and a 96x128
-capture instead (what the CPU test drives).
+capture instead (what the CPU test drives). ``--strips`` runs each form of
+B and H once for each strip length given (rows a thread walks; the
+default is ``tpu_inspect_torch.ops.median.strip_rows``).
 """
 
 from __future__ import annotations
@@ -35,10 +37,21 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 
 
+def _roi_rows_bytes(x, k: int, lo, hi) -> int:
+    """Bytes of ``x`` [U, H, W] uint8 a median residual over rows [lo, hi)
+    of each unit must read: those rows and k // 2 more on each side."""
+    _, h, w = x.shape
+    r = k // 2
+    lo, hi = lo.cpu().long(), hi.cpu().long()
+    rows = ((hi + r).clamp(max=h) - (lo - r).clamp(min=0)).clamp(min=0)
+    return int(torch.where(hi > lo, rows, 0).sum()) * w
+
+
 def planes(dev: torch.device, small: bool = False) -> dict:
-    """The named input planes of D's and E's forms on ``dev``, made as the
-    main paths make them (otsu/threshold, the standard workload's
-    exclusions; Canny at the default threshold)."""
+    """The named inputs of B's, D's, E's and H's forms on ``dev``, made as
+    the main paths make them (otsu/threshold, the standard workload's
+    exclusions; Canny at the default threshold). An int entry is a byte
+    count standing in for the bytes a form reads of a plane."""
     from tpu_inspect_torch import engine
     from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
     from tpu_inspect_torch.geometry import grid_origins
@@ -87,7 +100,20 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     m_w = candidate_mask(cand_w, roi_w, True)
     fill_w, _, ext_w = engine._fill_regions(m_w)
     lin = torch.arange(m_w[0].numel(), dtype=torch.int32, device=dev).reshape(m_w.shape)
+    rows = {"lo": roi_st[:, 4].to(torch.int32).contiguous(),
+            "hi": roi_st[:, 5].to(torch.int32).contiguous(),
+            "lo_w": roi_st_w[:, 4].to(torch.int32).contiguous(),
+            "hi_w": roi_st_w[:, 5].to(torch.int32).contiguous()}
+    # one unit with ROI rows, as the interactive calls and the diagnostic
+    # pass take it
+    rows.update(lo1=rows["lo"][u0 : u0 + 1], hi1=rows["hi"][u0 : u0 + 1])
+    crop1 = crops[u0 : u0 + 1].contiguous()
     return {
+        "crops": crops, "whole": whole, "crop1": crop1, **rows,
+        "roi_rows21_1": _roi_rows_bytes(crop1, 21, rows["lo1"], rows["hi1"]),
+        **{f"roi_rows{k}": _roi_rows_bytes(crops, k, rows["lo"], rows["hi"]) for k in (21, 45)},
+        **{f"roi_rows{k}_w": _roi_rows_bytes(whole, k, rows["lo_w"], rows["hi_w"])
+           for k in (21, 45)},
         "strong": strong, "cand": cand_c, "free": (seg_masks == 0).contiguous(),
         "fg1": fg1, "fill1": fill1, "free1": fg1.logical_not().contiguous(),
         "free_w": seg_pre_w.logical_not().contiguous(), "seg_fill_w": seg_fill_w.contiguous(),
@@ -97,37 +123,73 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     }
 
 
-# form -> (kernel, input plane names, call on (kernel function, planes));
-# the first six are D's four paths (the 48 units' Canny hysteresis and the
-# whole-image route's three), then E's
+THR = 24  # DefectParams().threshold
+
+# form -> (kernel, input names, call on (kernel function, planes, strip));
+# B's forms (the default k = 21 over the ROI rows, and k = 45, the largest
+# k it takes; one unit as the interactive calls take it), then D's four
+# paths (the 48 units' Canny hysteresis and the whole-image route's three),
+# E's, and H's (median_k = 47, the engine's smallest k on H, and 101; one
+# unit; 47 on the whole plane)
 FORMS = {
-    "D canny 48u": ("propagate", ("strong", "cand"), lambda f, p: f(p["strong"], p["cand"], True)),
+    "B 48u k21 roi rows": ("median_residual", ("roi_rows21", "lo", "hi"),
+                           lambda f, p, s: f(p["crops"], 21, THR, p["lo"], p["hi"], strip=s)),
+    "B 48u k45 roi rows": ("median_residual", ("roi_rows45", "lo", "hi"),
+                           lambda f, p, s: f(p["crops"], 45, THR, p["lo"], p["hi"], strip=s)),
+    "B 1u k21 roi rows": ("median_residual", ("roi_rows21_1", "lo1", "hi1"),
+                          lambda f, p, s: f(p["crop1"], 21, THR, p["lo1"], p["hi1"], strip=s)),
+    "B whole k21 roi rows": ("median_residual", ("roi_rows21_w", "lo_w", "hi_w"),
+                             lambda f, p, s: f(p["whole"], 21, THR, p["lo_w"], p["hi_w"],
+                                               strip=s)),
+    "B whole k45 roi rows": ("median_residual", ("roi_rows45_w", "lo_w", "hi_w"),
+                             lambda f, p, s: f(p["whole"], 45, THR, p["lo_w"], p["hi_w"],
+                                               strip=s)),
+    "D canny 48u": ("propagate", ("strong", "cand"),
+                    lambda f, p, s: f(p["strong"], p["cand"], True)),
     "D border seg masks 48u": ("propagate", ("free",),
-                               lambda f, p: f(None, p["free"], False, border_seed=True)),
+                               lambda f, p, s: f(None, p["free"], False, border_seed=True)),
     "D border diag unit": ("propagate", ("free1",),
-                           lambda f, p: f(None, p["free1"], False, border_seed=True)),
+                           lambda f, p, s: f(None, p["free1"], False, border_seed=True)),
     "D whole seg hole fill": ("propagate", ("free_w",),
-                              lambda f, p: f(None, p["free_w"], False, border_seed=True)),
+                              lambda f, p, s: f(None, p["free_w"], False, border_seed=True)),
     "D whole defect exterior": ("propagate", ("free_mw",),
-                                lambda f, p: f(None, p["free_mw"], False, border_seed=True)),
+                                lambda f, p, s: f(None, p["free_mw"], False, border_seed=True)),
     "D whole top-level blobs": ("propagate", ("seed_w", "m_w"),
-                                lambda f, p: f(p["seed_w"], p["m_w"], True)),
-    "E diag fill plane": ("label", ("fill1",), lambda f, p: f(p["fill1"])),
-    "E diag fg plane": ("label", ("fg1",), lambda f, p: f(p["fg1"])),
-    "E canny candidates 48u": ("label", ("cand",), lambda f, p: f(p["cand"])),
-    "E whole seg mask": ("label", ("seg_fill_w",), lambda f, p: f(p["seg_fill_w"])),
-    "E whole ROI": ("label", ("roi_pre_w",), lambda f, p: f(p["roi_pre_w"])),
-    "E whole fill regions": ("label", ("fill_plane_w",), lambda f, p: f(p["fill_plane_w"])),
+                                lambda f, p, s: f(p["seed_w"], p["m_w"], True)),
+    "E diag fill plane": ("label", ("fill1",), lambda f, p, s: f(p["fill1"])),
+    "E diag fg plane": ("label", ("fg1",), lambda f, p, s: f(p["fg1"])),
+    "E canny candidates 48u": ("label", ("cand",), lambda f, p, s: f(p["cand"])),
+    "E whole seg mask": ("label", ("seg_fill_w",), lambda f, p, s: f(p["seg_fill_w"])),
+    "E whole ROI": ("label", ("roi_pre_w",), lambda f, p, s: f(p["roi_pre_w"])),
+    "E whole fill regions": ("label", ("fill_plane_w",), lambda f, p, s: f(p["fill_plane_w"])),
+    "H 48u k47": ("median_blur", ("crops",), lambda f, p, s: f(p["crops"], 47, strip=s)),
+    "H 48u k101": ("median_blur", ("crops",), lambda f, p, s: f(p["crops"], 101, strip=s)),
+    "H 1u k47": ("median_blur", ("crop1",), lambda f, p, s: f(p["crop1"], 47, strip=s)),
+    "H whole k47": ("median_blur", ("whole",), lambda f, p, s: f(p["whole"], 47, strip=s)),
 }
+# the kernels whose forms take a strip length
+STRIPPED = ("median_residual", "median_blur")
 
 
 def kernels() -> dict:
-    """kernel name -> (wrapper, plain version)."""
+    """kernel name -> (wrapper, plain version, whether it takes a bound flag);
+    B's and H's wrappers are the ones that take a strip length."""
     from tpu_inspect_torch.ops.cc import label_components, label_components_plain
     from tpu_inspect_torch.ops.flood import propagate, propagate_plain
+    from tpu_inspect_torch.ops.median import (
+        _median_blur,
+        _median_residual,
+        median_blur_u8_plain,
+        median_residual_mask_plain,
+    )
 
-    return {"propagate": (propagate, propagate_plain),
-            "label": (label_components, label_components_plain)}
+    def stripless(plain):  # the plain versions walk no strips
+        return lambda *a, strip=None, **kw: plain(*a, **kw)
+
+    return {"propagate": (propagate, propagate_plain, True),
+            "label": (label_components, label_components_plain, True),
+            "median_residual": (_median_residual, stripless(median_residual_mask_plain), False),
+            "median_blur": (_median_blur, stripless(median_blur_u8_plain), False)}
 
 
 def _ms(fn, dev: torch.device, n: int, reps: int) -> float:
@@ -154,16 +216,18 @@ def _ms(fn, dev: torch.device, n: int, reps: int) -> float:
 
 
 def bench(forms=tuple(FORMS), device="cuda", small: bool = False, n: int = 20,
-          reps: int = 5, profile: bool = False) -> list[dict]:
-    """Check and time each of ``forms``; returns one dict a form (form,
-    kernel, shape, max_abs_err, ms, ms_flag_each_call, plain_ms, bound_ms,
-    where). ``ms`` passes every call one bound flag, read after the
-    timing (as the engine's entry points read theirs once a call);
-    ``ms_flag_each_call`` lets the wrapper read its own flag after each
-    launch, a host wait a call. With ``profile`` (card only) each row also
-    has ``device``: [name, ms, launches] per kernel and call under
-    ``torch.profiler``. Raises if a form differs from its plain version or a
-    kernel set its flag."""
+          reps: int = 5, profile: bool = False, strips=(None,)) -> list[dict]:
+    """Check and time each of ``forms`` (B's and H's once for each of
+    ``strips``, None their default); returns one dict a form and strip
+    (form, kernel, strip, shape, max_abs_err, ms, ms_flag_each_call,
+    plain_ms, bound_ms, where). For a kernel with a bound flag, ``ms``
+    passes every call one flag, read after the timing (as the engine's
+    entry points read theirs once a call), and ``ms_flag_each_call`` lets
+    the wrapper read its own flag after each launch, a host wait a call
+    (None for B and H, which have no flag). With ``profile`` (card only)
+    each row also has ``device``: [name, ms, launches] per kernel and call
+    under ``torch.profiler``. Raises if a form differs from its plain
+    version or a kernel set its flag."""
     from functools import partial
 
     from tpu_inspect_torch.device import resolve_device
@@ -179,29 +243,34 @@ def bench(forms=tuple(FORMS), device="cuda", small: bool = False, n: int = 20,
     rows = []
     for form in forms:
         name, inputs, call = FORMS[form]
-        fast, plain = fns[name]
-        got, ref = call(fast, p), call(plain, p)
-        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
-        if got.dtype != ref.dtype or err:
-            raise RuntimeError(f"kernel_bench: {form} differs from its plain version "
-                               f"(max |err| {err}, {got.dtype} vs {ref.dtype})")
-        moved = sum(p[k].numel() * p[k].element_size() for k in inputs)
-        moved += got.numel() * got.element_size()
-        flag = error_flag(dev)
-        one_flag = partial(fast, err=flag) if dev.type == "cuda" else fast
-        rows.append({
-            "form": form, "kernel": name, "shape": list(got.shape), "max_abs_err": err,
-            "ms": _ms(lambda: call(one_flag, p), dev, n, reps),
-            "ms_flag_each_call": _ms(lambda: call(fast, p), dev, n, reps),
-            "plain_ms": _ms(lambda: call(plain, p), dev, max(1, n // 10), reps),
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "where": where,
-        })
-        if profile and dev.type == "cuda":
-            from tpu_inspect_torch.utils.profile import profile_device
+        fast, plain, flagged = fns[name]
+        ref = call(plain, p, None)
+        plain_ms = _ms(lambda: call(plain, p, None), dev, max(1, n // 10), reps)
+        for strip in strips if name in STRIPPED else (None,):
+            got = call(fast, p, strip)
+            err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
+            if got.dtype != ref.dtype or err:
+                raise RuntimeError(f"kernel_bench: {form} (strip {strip}) differs from its plain "
+                                   f"version (max |err| {err}, {got.dtype} vs {ref.dtype})")
+            moved = sum(p[k] if isinstance(p[k], int) else p[k].numel() * p[k].element_size()
+                        for k in inputs)
+            moved += got.numel() * got.element_size()
+            flag = error_flag(dev)
+            one_flag = partial(fast, err=flag) if flagged and dev.type == "cuda" else fast
+            rows.append({
+                "form": form, "kernel": name, "strip": strip, "shape": list(got.shape),
+                "max_abs_err": err,
+                "ms": _ms(lambda: call(one_flag, p, strip), dev, n, reps),
+                "ms_flag_each_call": (_ms(lambda: call(fast, p, strip), dev, n, reps)
+                                      if flagged else None),
+                "plain_ms": plain_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "where": where,
+            })
+            if profile and dev.type == "cuda":
+                from tpu_inspect_torch.utils.profile import profile_device
 
-            prof = profile_device(lambda: call(one_flag, p), reps)
-            rows[-1]["device"] = [[k[:60], ms, c] for k, ms, c in prof.rows]
-        build.check_bounded(f"kernel_bench {form}", flag)
+                prof = profile_device(lambda: call(one_flag, p, strip), reps)
+                rows[-1]["device"] = [[k[:60], ms, c] for k, ms, c in prof.rows]
+            build.check_bounded(f"kernel_bench {form}", flag)
     return rows
 
 
@@ -215,18 +284,24 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--reps", type=int, default=5, help="timings per form (median)")
     ap.add_argument("--profile", action="store_true",
                     help="device time per kernel under torch.profiler (card only)")
+    ap.add_argument("--strips", default="",
+                    help="comma-separated strip lengths for B's and H's forms (default: theirs)")
     ap.add_argument("--list", action="store_true", help="print the forms and exit")
     args = ap.parse_args(argv)
     if args.list:
         print("\n".join(FORMS))
         return []
+    strips = tuple(int(v) for v in args.strips.split(",") if v) or (None,)
     rows = bench(tuple(args.forms) or tuple(FORMS), args.device, args.small, args.n, args.reps,
-                 args.profile)
+                 args.profile, strips)
     for r in rows:
         shape = "x".join(map(str, r["shape"]))
-        print(f"{r['form']:26s} {shape:>12s} {r['ms']:9.4f} ms ({r['ms_flag_each_call']:.4f} "
-              f"reading the flag each call; plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms'] * 1e3:.2f} us) exact, on {r['where']}")
+        flag = r["ms_flag_each_call"]
+        flag = "no flag" if flag is None else f"{flag:.4f} reading the flag each call"
+        strip = "" if r["strip"] is None else f" S={r['strip']}"
+        print(f"{r['form'] + strip:32s} {shape:>12s} {r['ms']:9.4f} ms ({flag}; plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us) exact, on "
+              f"{r['where']}")
         for name, ms, count in r.get("device", []):
             print(f"    {ms:9.4f} ms x{count:g}  {name}")
     print(json.dumps(rows))

@@ -1,12 +1,16 @@
-"""Ablation sweep of kernel B, the median residual, on the card (kernel L).
+"""Ablation sweep of the median residual's per-pixel window design on the
+card (kernel L).
 
 The port of ``tools/median_probe.py``, whose ``probe`` stripped pieces of
-the TPU's histogram loop to attribute its time. Kernel B
-(``csrc/median_residual.cu``) has no histogram, so kernel L
-(``csrc/median_probe.cu``) strips pieces of B's own design instead, each
-at several tile shapes:
+the TPU's histogram loop to attribute its time. Kernel L
+(``csrc/median_probe.cu``) strips pieces of kernel B's earlier design (a
+thread per output pixel counting its k x k window, ``csrc/median_window.cuh``)
+instead, each at several tile shapes; kernel B itself now walks a sliding
+histogram (``csrc/median_hist.cuh``), so L's baseline is that earlier
+design, not B's current body:
 
-- ``baseline``: B's computation (bit-exact against B's plain version);
+- ``baseline``: the earlier design's computation (bit-exact against B's
+  plain version);
 - ``nofill``: no global -> shared tile fill;
 - ``nocount``: no k x k count loop, the centre compare written instead;
 - ``norows``: no ROI-row early exit.
@@ -31,13 +35,13 @@ from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes, check_vecto
 from tpu_inspect_torch.ops.median import _check_k, _row_bounds, median_residual_mask_plain
 
 MODES = ("baseline", "nofill", "nocount", "norows")
-# (threads along x, along y); (32, 8) is kernel B's
+# (threads along x, along y); (32, 8) was kernel B's tile in that design
 TILES = ((32, 8), (32, 16), (64, 8), (16, 16))
 
 
 def probe(x, k: int, thr: int, row_lo=None, row_hi=None, mode: str = "baseline",
           tile: tuple[int, int] = (32, 8)):
-    """Kernel L: kernel B's median residual of x [U, H, W] uint8 in ablation
+    """Kernel L: the per-pixel window median residual of x [U, H, W] uint8 in ablation
     ``mode`` at ``tile`` -> [U, H, W] uint8. Only ``baseline`` computes the
     median residual; it alone has a plain version, for CPU tensors."""
     if mode not in MODES:
