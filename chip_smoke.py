@@ -23,8 +23,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel G on the defect tail's fill labels, top-level blobs and
    exterior); kernel H's full median at k = 47, 49 and 101 on the 48 units
    and at k = 47 on the whole plane, at k = 101 and 301 above the unit and
-   at k = 46341 (its 64-bit bins) on small planes; kernel I's close/open, open and 13x13
-   erode forms on the 48 units and on the whole plane; kernel J on the 48
+   at k = 46341 (its 64-bit bins) on small planes; kernel I's chains with
+   their heads (close/open with the threshold, the ROI erode, the open with
+   the ROI AND) on the 48 units and on the whole plane, and the 401x401
+   erode (erode_px 200) on the whole plane; kernel F also
+   on a whole plane of isolated pixels; kernel J on the 48
    units' eroded seg masks with an empty and a full unit, and on the one
    unit of the erosion preview; kernel K (the chained seg tail, zone and
    ROI tail) on the 48 units with and without the zone at erode_px 0, 6 and
@@ -34,8 +37,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    large for their shared-memory layout (the global-scratch variant);
    seeded random planes of odd sizes with an empty and a full unit, and a
    long 1-px serpentine; then the ``cuda``-marked tests of the Otsu kernel,
-   of the redesigned A, K and C, of the redesigned D and E and of the
-   redesigned B and H (``tests/test_torch_otsu.py``,
+   of the redesigned A, K and C, of the redesigned D and E, of the
+   redesigned B and H and of the redesigned I and F
+   (``tests/test_torch_otsu.py``,
    ``tests/test_torch_cuda.py``, ``tests/test_torch_uf.py``,
    ``tests/test_torch_median_hist.py``: word-edge widths, tile seams and
    corners, staircases, spirals, serpentines, solid planes, real Canny
@@ -48,7 +52,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (the reference capture; for otsu/threshold and adaptive/canny also a
    capture shifted by (7, -4), aligned to the first one's centroids),
    ``engine.defect_intermediates`` on a few units for both defect methods,
-   and the whole-image route (kernels B, D, E, F and G, never A or C):
+   and the whole-image route (kernels B, D, E, F, G and I, never A or C;
+   I once a chain, three a seg + defect call, F once a tail):
    ``inspect_image`` with one 4096x3000 unit, ``segment_units`` (config1)
    and ``inspect_units`` (config1defect) on the reference and the shifted
    capture for otsu/threshold; the other combos on the card at full size,
@@ -412,9 +417,9 @@ def main() -> int:
         strip_rows,
     )
     from tpu_inspect_torch.ops.morphology import (
-        apply_stages,
         close_open_stages,
         morph_chain,
+        morph_chain_plain,
         open_stages,
         rect_erode_stages,
     )
@@ -424,7 +429,6 @@ def main() -> int:
         otsu_threshold,
         otsu_threshold_from_hist,
         otsu_threshold_plain,
-        threshold_binary_inv,
     )
     from tpu_inspect_torch.persistence import load_grid
     from tpu_inspect_torch.png import encode_png
@@ -529,14 +533,16 @@ def main() -> int:
     say(f"phase 3: whole-image planes 1x3000x4096: seg mask {int(seg_fill_w.sum())} px, "
         f"ROI {int(roi_st_w[0, 0])} px, candidates {int(m_w.sum())} px (Canny "
         f"{int(m_cw.sum())} px)")
-    # kernel I's planes: the seg tail's thresholded head, the ROI-masked
-    # residual before its open, the seg masks before the ROI erode
+    # kernel I's inputs: each chain takes its head's own planes (the seg
+    # tail's gray and threshold, the seg masks, the residual and its ROI)
     open3 = open_stages(3)
-    seg_head = threshold_binary_inv(x, thr)
-    cand_roi_u8 = torch.where(roi > 0, cand, torch.zeros_like(cand))
-    seg_head_w = threshold_binary_inv(x_w, otsu_threshold(x_w))
+    thr_w = otsu_threshold(x_w)
     cand_w = median_residual_mask(whole, k, t_res, row_lo_w, row_hi_w)
-    cand_roi_w = torch.where(roi_w > 0, cand_w, torch.zeros_like(cand_w))
+    # kernel F's further form: a plane of isolated pixels on a 2-pixel grid,
+    # the most components a plane holds (3.07 M)
+    iso_w = torch.zeros_like(whole, dtype=torch.bool)
+    iso_w[:, ::2, ::2] = True
+    iso_lab_w = label_components(iso_w)
     # kernel J's planes: the eroded seg masks (an empty and a full unit in
     # place of the first two) and the erosion preview's unit
     j_plane = tail_mask(seg_masks, erode)
@@ -632,9 +638,13 @@ def main() -> int:
             ("k 101, 48 units", lambda f: f(crops, 101), (crops,)),
         ],
         "morph": [
-            ("close/open k3, 48 units", lambda f: f(seg_head, co), (seg_head,)),
-            ("open 3x3, 48 units", lambda f: f(cand_roi_u8, open3), (cand_roi_u8,)),
+            ("close/open k3, thr head, 48 units", lambda f: f(x, co, thr), (x, thr)),
+            ("open 3x3, roi head, 48 units", lambda f: f(cand, open3, roi=roi), (cand, roi)),
             ("erode 13x13, 48 units", lambda f: f(seg_masks, erode), (seg_masks,)),
+            ("whole erode 401x401", lambda f: f(seg_mask_w, erode200), (seg_mask_w,)),
+        ],
+        "cc_stats": [
+            ("whole isolated px grid", lambda f: f(iso_lab_w, iso_w), (iso_lab_w, iso_w)),
         ],
         "label_stats": [
             ("eroded seg masks 48u, empty + full", lambda f: f(j_plane), (j_plane,)),
@@ -682,9 +692,9 @@ def main() -> int:
             (f"k {BIG_K}, whole plane", lambda f: f(whole, BIG_K), (whole,)),
         ],
         "morph": [
-            ("whole close/open k3", lambda f: f(seg_head_w, co), (seg_head_w,)),
+            ("whole close/open k3, thr head", lambda f: f(x_w, co, thr_w), (x_w, thr_w)),
             ("whole erode 13x13", lambda f: f(seg_mask_w, erode), (seg_mask_w,)),
-            ("whole open 3x3", lambda f: f(cand_roi_w, open3), (cand_roi_w,)),
+            ("whole open 3x3, roi head", lambda f: f(cand_w, open3, roi=roi_w), (cand_w, roi_w)),
         ],
         "otsu": [
             ("whole plane", lambda f: f(x_w), (x_w,)),
@@ -738,7 +748,7 @@ def main() -> int:
         "cc_stats": (flagged(component_stats), component_stats_plain),
         "blob_select": (flagged(blob_select), blob_select_plain),
         "median_blur": (median_blur_u8, median_blur_u8_plain),
-        "morph": (morph_chain, apply_stages),
+        "morph": (morph_chain, morph_chain_plain),
         "label_stats": (largest_component_sums, largest_component),
         "seg_roi_tail": (flagged(seg_roi_tail), seg_roi_tail_plain),
         "median_probe": (median_probe.probe, probe_plain),
@@ -818,6 +828,9 @@ def main() -> int:
             ("morph", "close/open 7", lambda f: f(blobs_t, close_open_stages(7))),
             ("morph", "erode 25", lambda f: f(full, rect_erode_stages(25))),
             ("morph", "open 3", lambda f: f(full, open3)),
+            ("morph", "close/open 3, thr head", lambda f: f(gray_ef, close_open_stages(3), thr_r)),
+            ("morph", "close/open 4, roi head", lambda f: f(full_b, close_open_stages(4), roi=roi_r)),
+            ("morph", "erode 200", lambda f: f(blobs_t, erode200)),
             ("label_stats", "random", lambda f: f(full_b)),
             ("label_stats", "inverted", lambda f: f((~full_b).contiguous())),
             ("seg_roi_tail", "zone, erode 6",
@@ -888,12 +901,17 @@ def main() -> int:
     # spiral and a serpentine), of the redesigned B and H (widths 1, 31-33
     # and 315-316, H = 1, strips ending inside the ROI rows, empty and full
     # row ranges, flat and 0/255 planes, thr 0 and 255, k from 3 to 301 and
-    # 46341, units never mixed), and the sync checks, each against its plain
-    # version; the files' other tests repeat this script's own checks
+    # 46341, units never mixed), of the redesigned I and F (every head,
+    # widths 1, 31-33, 63-65 and 4096, H = 1, morph_kernel 2/3/4/31,
+    # erode_px 0/1/6/200; block-rank ties, the isolated-pixel grid, one
+    # component, an empty unit, a label outside the plane), and the sync
+    # checks, each against its plain version; the files' other tests repeat
+    # this script's own checks
     mark("phase 3: the cuda-marked tests start")
     tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
              "tests/test_torch_median_hist.py"]
-    selected = "otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist"
+    selected = ("otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist "
+                "or mask_chain or cc_stats_")
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
          "--noconftest", "-p", "no:cacheprovider"],
@@ -1033,11 +1051,14 @@ def main() -> int:
     excl = work["exclusions"]
 
     def route_launches(path, launches, expect):
-        """Fail unless every kernel of ``expect`` launched on the path, and
-        kernels A and C never."""
+        """Fail unless every kernel of ``expect`` launched on the path,
+        kernels A and C never, kernel I once a chain (the seg tail's; the
+        ROI's and the candidates' with a defect pass) and F once a tail."""
         launches_by_path[path] = launches
+        chains = {"morph": 3, "cc_stats": 2} if "blob_select" in expect else {
+            "morph": 1, "cc_stats": 1}
         if (any(launches[n] < 1 for n in expect) or launches["seg_tail"]
-                or launches["blob_filter"]):
+                or launches["blob_filter"] or any(launches[n] != c for n, c in chains.items())):
             fail(f"{path}: not the whole-image route, launches {launches}")
 
     def held(path, got, ref):
@@ -1556,8 +1577,7 @@ def main() -> int:
         neg = -(plane.to(torch.float16).unsqueeze(1))
         pool = torch.nn.functional.max_pool2d
         r = 2 * dparams.erode_px + 1
-        if not torch.equal((-pool(neg, r, 1, r // 2)).squeeze(1).to(torch.uint8),
-                           morph_chain(plane, erode)):
+        if not torch.equal((-pool(neg, r, 1, r // 2)).squeeze(1) > 0, morph_chain(plane, erode)):
             fail(f"morph [{label}]: the library yardstick computes another function")
         lib_ms[label] = cuda_ms(lambda n=neg: pool(n, r, 1, r // 2), REPS_KERNEL)
         say(f"phase 5: library max_pool2d(-x, {r}, 1, {r // 2}) float16 [{label}] "

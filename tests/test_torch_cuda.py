@@ -40,6 +40,7 @@ from tpu_inspect_torch.ops.morphology import (
     apply_stages,
     close_open_stages,
     morph_chain,
+    morph_chain_plain,
     open_stages,
     rect_erode_stages,
 )
@@ -294,8 +295,9 @@ def test_morph_chain_matches_plain(cuda, stages_name):
         stages = rect_erode_stages(int(stages_name[len("erode"):]))
     reset_launches()
     got = morph_chain(x, stages)
-    assert LAUNCHES["morph"] == len(stages)  # one launch per stage
-    _assert_equal(got, apply_stages(x, stages))
+    assert LAUNCHES["morph"] == 1  # one launch per chain
+    _assert_equal(got, morph_chain_plain(x, stages))
+    _assert_equal(got, apply_stages(x, stages) > 0)
 
 
 @pytest.mark.parametrize("shape", [(4, 37, 53), (1, 315, 316), (3, 401, 421)])
@@ -561,6 +563,112 @@ def test_inspect_image_device_waits_nowhere(cuda):
             assert int(out[4][3].sum()) == 8, "NG 8/48 on the reference capture"
         else:
             assert LAUNCHES["label"] == 3 and LAUNCHES["propagate"] == 3
+            assert LAUNCHES["morph"] == 3 and LAUNCHES["cc_stats"] == 2
             ref = teng.inspect_units(wl["image"][None], seg, dp, wl["exclusions"], device=cuda)[1]
             assert int(out[2][0]) == int(ref.areas[0])
             assert np.array_equal(out[0].cpu().numpy(), ref.defect_masks)
+
+
+# kernel I's chains: every head, the config's reaches, word-edge widths
+_MASK_CHAINS = {
+    "close/open 2": close_open_stages(2), "close/open 3": close_open_stages(3),
+    "close/open 4": close_open_stages(4), "close/open 31": close_open_stages(31),
+    "open 3": open_stages(3), "erode 0": rect_erode_stages(0), "erode 1": rect_erode_stages(1),
+    "erode 6": rect_erode_stages(6), "erode 200": rect_erode_stages(200),
+}
+
+
+@pytest.mark.parametrize("h,w", [(1, 45), (37, 1), (37, 31), (37, 32), (37, 33), (37, 48),
+                                 (29, 53), (37, 63), (37, 64), (37, 65), (40, 4096)])
+def test_mask_chain_heads_match_plain(cuda, h, w):
+    """Kernel I, one launch a chain, against its plain version: random
+    gray planes under the seg tail's threshold head (thr -1, 0, 127, 300
+    per unit), bool and 0/255 masks, the candidates' ROI AND, at widths
+    around a word's edge (48: a half word after 16-byte rows), H = 1 and
+    4096, with every chain above (erode 200
+    on a 29x53 plane reaches past the plane); units never mix."""
+    rng = np.random.RandomState(h * 1000 + w)
+    gray = torch.from_numpy(rng.randint(0, 256, (4, h, w), dtype=np.uint8)).to(cuda)
+    thr = torch.tensor([-1, 0, 127, 300], dtype=torch.int32, device=cuda)
+    mask = gray > 90
+    mask[1] = False  # an empty unit
+    mask[2] = True  # a full unit
+    roi = _planes(rng, (4, h, w), 0.2, cuda)
+    heads = [dict(x=gray, thr=thr), dict(x=mask), dict(x=mask.to(torch.uint8) * 255),
+             dict(x=mask, roi=roi), dict(x=gray, thr=thr, roi=roi > 0)]
+    for name, stages in _MASK_CHAINS.items():
+        for kw in heads:
+            reset_launches()
+            got = morph_chain(stages=stages, **kw)
+            assert LAUNCHES["morph"] == 1, name
+            want = morph_chain_plain(stages=stages, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bool and torch.equal(got, want), (name, sorted(kw))
+
+
+def test_mask_chain_reach_beyond_the_config_raises(cuda):
+    x = torch.zeros((1, 3000, 4096), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="no tile"):
+        morph_chain(x, rect_erode_stages(300))
+    morph_chain(x, rect_erode_stages(200))  # the config's largest
+
+
+def _stair_tie(h=10, w=24):
+    """Two 15-pixel components in one 2x2-block row: the one whose label
+    (raster-first pixel, (2, 20)) comes later holds the smaller block rank,
+    through its pixel (3, 8) in the row below its label's."""
+    fg = np.zeros((h, w), bool)
+    for y, x in [(3, 8), (4, 9), (4, 19), (3, 19), (3, 20), (2, 20)]:
+        fg[y, x] = True
+    fg[5, 10:19] = True
+    fg[2, 10:18] = True
+    fg[3, 11:18] = True
+    return fg
+
+
+@pytest.mark.parametrize("case", ["ties", "isolated grid", "one component", "batch", "wide"])
+def test_cc_stats_cases_match_plain(cuda, case):
+    """Kernel F against its plain version: equal-area ties that only the
+    block rank resolves (the (2, 28) / (3, 0) pair and a rank held by the
+    row below the label), a plane of isolated pixels on a 2-pixel grid (the
+    most components a plane holds), one component covering the plane, an
+    empty unit in a batch of 5, and a plane wider than a CTA's segment."""
+    rng = np.random.RandomState(17)
+    if case == "ties":
+        fg = np.zeros((2, 10, 40), bool)
+        fg[0, :, :24] = _stair_tie()
+        fg[1, 2, 28] = fg[1, 3, 0] = True
+    elif case == "isolated grid":
+        fg = np.zeros((2, 301, 518), bool)
+        fg[:, ::2, ::2] = True
+        fg[1, 300, 516] = False  # the last block's pixel: the tie goes elsewhere
+    elif case == "one component":
+        fg = np.ones((1, 257, 1031), bool)
+    elif case == "batch":
+        fg = rng.rand(5, 61, 76) > 0.5
+        fg[3] = False
+    else:
+        fg = np.zeros((1, 33, 2500), bool)
+        fg[0, 3:20, 5:2495] = True
+        fg[0, 25, :] = True
+        fg[0, 22:31, 100:200] = rng.rand(9, 100) > 0.3
+    fg_t = torch.from_numpy(fg).to(cuda)
+    labels = label_components(fg_t)
+    reset_launches()
+    got = component_stats(labels, fg_t)
+    assert LAUNCHES["cc_stats"] == 1
+    _assert_equal(got, component_stats_plain(labels, fg_t))
+    if case == "ties":
+        assert got[0][0, 3, 8] and not got[0][0, 2, 10]
+        assert got[0][1, 3, 0] and not got[0][1, 2, 28]
+
+
+def test_cc_stats_label_outside_the_plane_sets_the_flag(cuda):
+    fg = torch.ones((2, 9, 12), dtype=torch.bool, device=cuda)
+    labels = label_components(fg)
+    labels[1, 4, 5] = 9 * 12  # one past the plane
+    err = error_flag(cuda)
+    component_stats(labels, fg, err)
+    assert int(err.item()) == 3
+    with pytest.raises(RuntimeError, match="flag 3"):
+        component_stats(labels, fg)

@@ -96,6 +96,34 @@ def test_component_stats_plain_matches_jax_whole_image_functions(interp):
         _check_stats(mask, stats, fg, jax.jit(tiled)(jfg, jlab))
 
 
+def _tie_planes():
+    """[4, 24, 40] bool: two 15-pixel components in one 2x2-block row whose
+    block-rank order (through the later label's pixel in the row below)
+    differs from their labels' raster order, a plane of isolated pixels on a
+    2-pixel grid (every component ties at area 1), a full unit, an empty
+    unit."""
+    fg = np.zeros((4, 24, 40), bool)
+    for y, x in [(3, 8), (4, 9), (4, 19), (3, 19), (3, 20), (2, 20)]:
+        fg[0, y, x] = True
+    fg[0, 5, 10:19] = True
+    fg[0, 2, 10:18] = True
+    fg[0, 3, 11:18] = True
+    fg[1, 1::2, 1::2] = True
+    fg[2] = True
+    return fg
+
+
+def test_component_stats_plain_ties_match_jax():
+    """Kernel F's contract where only OpenCV's block-raster order decides:
+    its plain version against the JAX package's ``largest_component_sums``."""
+    fg = _tie_planes()
+    fg_t = torch.from_numpy(fg)
+    mask, stats = component_stats(label_components(fg_t), fg_t)
+    assert mask[0, 3, 8] and not mask[0, 2, 10] and int(stats[0, 0]) == 15
+    assert int(mask[1].sum()) == 1 and mask[1, 1, 1]
+    _check_stats(mask, stats, fg, jax.jit(jcc.largest_component_sums)(jnp.asarray(fg)))
+
+
 def test_component_stats_plain_int64_sums():
     fg = np.ones((1, 64, 40000), bool)
     fg_t = torch.from_numpy(fg)

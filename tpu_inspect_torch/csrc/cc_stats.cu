@@ -17,22 +17,31 @@
 // 22 us at 3.35 TB/s), and contention: a mold mask is a few huge components,
 // so per-pixel atomics would serialise on a few addresses. Design: no tiles
 // and no cross-tile merge, which existed only because a whole plane does not
-// fit a TPU core's VMEM. Four passes over the whole batch:
-//   1. area and minimum block rank per root slot u*H*W + label: each thread
-//      walks a 32-pixel row segment and flushes one atomic pair per run of
-//      one label (block rank grows along a row, so a run's first pixel holds
-//      its minimum); the run still open at the segment's end is merged over
-//      the warp's lanes of the same slot before its atomics;
-//   2. per root, a 64-bit atomicMax of (area << 32) | ~min_rank per unit,
-//      reduced over the warp first;
+// fit a TPU core's VMEM, and no table the size of the plane. Under
+// 8-connectivity the fg pixels of a 2x2 block are one component, so the
+// block of a component's root pixel (its label) is its own: a table of one
+// 8-byte slot (area, 0xFFFFFFFF - min block rank) per 2x2 block holds every
+// component, zeroed with the per-unit rows in one memset. Four launches,
+// each a grid of whole CTAs striding over rows of one unit, a thread on 4
+// consecutive pixels (16-byte label loads, 4-byte fg loads and mask stores
+// where W % 4 == 0):
+//   1. area per root slot: each thread flushes one atomic a run of one
+//      label, its last run merged over the warp's lanes of the same label
+//      first; a run in its component's first block row (the rows of its
+//      label's block row: the minimum rank lies there) also takes an
+//      atomicMax of its first pixel's inverted rank;
+//   2. per slot, the key (area << 32) | inverted rank; the maximum over the
+//      unit's slots, one 64-bit atomicMax a CTA;
 //   3. per pixel, the winner's mask (its label is the label at the pixel of
 //      the winning minimum rank, decoded from the key), with the int64
-//      coordinate sums and the extents reduced per block before one atomic
-//      each;
+//      coordinate sums and the extents reduced per CTA before one atomic
+//      each (the extents' minima as maxima of H - y and W - x, so a zeroed
+//      row is the empty unit's);
 //   4. per unit, the stats row.
 // Every sum is an integer, so the order of the atomics cannot change the
 // result. A label outside its plane sets *err = 3 (the wrapper raises).
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -40,112 +49,103 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSeg = 32;  // pixels of a row per thread in pass 1
+constexpr int kSeg = 4 * kThreads;  // pixels of a row a CTA takes at a time
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kCtas = 4 * 132;      // CTAs a pass aims for over the batch
 
-// per-unit scratch row (int64): the winner key, sx, sy, row_lo, row_hi,
-// col_lo, col_hi, unused
+// per-unit scratch row (int64), zeroed: the winner key, sx, sy, max(H - y),
+// max(y + 1), max(W - x), max(x + 1), unused
 enum { kKey = 0, kSx, kSy, kRowLo, kRowHi, kColLo, kColHi, kUnitCols = 8 };
 
 __device__ inline unsigned block_rank(int y, int x, int bw) {
   return static_cast<unsigned>(((y >> 1) * bw + (x >> 1)) * 4 + (y & 1) * 2 + (x & 1));
 }
 
-__global__ void init_units_kernel(long long* __restrict__ units, int U, int H, int W) {
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= U) return;
-  long long* r = units + static_cast<size_t>(u) * kUnitCols;
-  r[kKey] = 0;
-  r[kSx] = 0;
-  r[kSy] = 0;
-  r[kRowLo] = H;
-  r[kRowHi] = 0;
-  r[kColLo] = W;
-  r[kColHi] = 0;
-  r[7] = 0;
+// labels and fg of the 4 pixels at i (n >= 1 of them in the row), 16-/4-byte
+// loads where the row start is aligned (W % 4 == 0)
+__device__ inline void load4(const int* __restrict__ labels, const uint8_t* __restrict__ fg,
+                             size_t i, int n, bool vec, int (&l)[4], bool (&f)[4]) {
+  if (vec && n == 4) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(labels + i));
+    const uchar4 b = __ldg(reinterpret_cast<const uchar4*>(fg + i));
+    l[0] = a.x, l[1] = a.y, l[2] = a.z, l[3] = a.w;
+    f[0] = b.x, f[1] = b.y, f[2] = b.z, f[3] = b.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[j] = false;
+    l[j] = 0;
+    if (j < n && fg[i + j]) {
+      f[j] = true;
+      l[j] = labels[i + j];
+    }
+  }
 }
 
-// pass 1: grid over row segments of all units (whole warps: every lane
-// reaches the warp-wide merge)
+// pass 1: grid (CTAs of a unit, U), each striding over row segments
 __global__ void __launch_bounds__(kThreads)
 area_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ fg,
-            int* __restrict__ area, unsigned* __restrict__ min_rank, int* err,
-            int U, int H, int W, int segs) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+            unsigned long long* __restrict__ slots, int* err, int H, int W, int vec) {
+  const int u = blockIdx.y;
   const int hw = H * W;
-  int slot = -1;
-  unsigned cnt = 0, first = 0xFFFFFFFFu;
-  if (t < static_cast<long long>(U) * H * segs) {
-    const int row = static_cast<int>(t / segs);  // u * H + y
-    const int s = static_cast<int>(t - static_cast<long long>(row) * segs);
-    const int u = row / H;
-    const int y = row - u * H;
-    const int base = u * hw;
-    const int bw = (W + 1) / 2;
-    const int x1 = min(s * kSeg + kSeg, W);
-    for (int x = s * kSeg; x < x1; ++x) {
-      const int i = base + y * W + x;
-      int cur = -1;
-      if (fg[i]) {
-        const int l = labels[i];
-        if (l < 0 || l >= hw) {
+  const int bw = (W + 1) >> 1;
+  const size_t base = static_cast<size_t>(u) * hw;
+  unsigned long long* uslots = slots + static_cast<size_t>(u) * ((H + 1) >> 1) * bw;
+  const int segs = (W + kSeg - 1) / kSeg;
+  const int lane = threadIdx.x & 31;
+  // a run of label l in row y: its pixel count and first x; a label at or
+  // past `pair` has its first block row (the minimum rank's) in y's
+  auto flush = [&](int l, unsigned cnt, int x0, int y, int pair) {
+    const int ly = l / W;
+    unsigned* slot = reinterpret_cast<unsigned*>(uslots + (ly >> 1) * bw + ((l - ly * W) >> 1));
+    atomicAdd(slot, cnt);
+    if (l >= pair) atomicMax(slot + 1, 0xFFFFFFFFu - block_rank(y, x0, bw));
+  };
+  for (int item = blockIdx.x; item < H * segs; item += gridDim.x) {
+    const int y = item / segs;
+    const int x = (item - y * segs) * kSeg + 4 * threadIdx.x;
+    const int n = max(0, min(4, W - x));
+    const int pair = (y & ~1) * W;
+    // a thread past the row's end loads nothing (with n == 0 left to
+    // load4, nvcc 12.8 took its 16-byte branch there and read past the
+    // plane)
+    int l[4] = {0, 0, 0, 0};
+    bool f[4] = {false, false, false, false};
+    if (n > 0) load4(labels, fg, base + static_cast<size_t>(y) * W + x, n, vec, l, f);
+    int cur = -1, x0 = 0;
+    unsigned cnt = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int lj = -1;
+      if (f[j]) {
+        if (l[j] < 0 || l[j] >= hw) {
           atomicExch(err, 3);
         } else {
-          cur = base + l;
+          lj = l[j];
         }
       }
-      if (cur != slot) {
-        if (slot >= 0) {
-          atomicAdd(area + slot, static_cast<int>(cnt));
-          atomicMin(min_rank + slot, first);
-        }
-        slot = cur;
+      if (lj != cur) {
+        if (cur >= 0) flush(cur, cnt, x0, y, pair);
+        cur = lj;
         cnt = 0;
-        first = block_rank(y, x, bw);
+        x0 = x + j;
       }
-      cnt += cur >= 0;
+      cnt += lj >= 0;
     }
-  }
-  const unsigned peers = __match_any_sync(kFull, slot);
-  unsigned total = 0, low = 0xFFFFFFFFu;
-  for (int j = 0; j < 32; ++j) {
-    const unsigned cj = __shfl_sync(kFull, cnt, j);
-    const unsigned rj = __shfl_sync(kFull, first, j);
-    if ((peers >> j) & 1u) {
-      total += cj;
-      low = min(low, rj);
+    // the open run, merged over the warp's lanes of the same label (one
+    // row: the lowest lane holds the run's first pixel)
+    const unsigned peers = __match_any_sync(kFull, cur);
+    unsigned total = 0;
+    if (peers == kFull) {  // warp-uniform: one label (or none) over the warp
+      total = __reduce_add_sync(kFull, cnt);
+    } else {
+      for (int j = 0; j < 32; ++j) {
+        const unsigned cj = __shfl_sync(kFull, cnt, j);
+        if ((peers >> j) & 1u) total += cj;
+      }
     }
-  }
-  const int lane = threadIdx.x & 31;
-  if (slot >= 0 && lane == __ffs(peers) - 1) {
-    atomicAdd(area + slot, static_cast<int>(total));
-    atomicMin(min_rank + slot, low);
-  }
-}
-
-// pass 2: grid (pixel blocks of a unit, U); a root is a fg pixel whose
-// label is its own index
-__global__ void __launch_bounds__(kThreads)
-key_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ fg,
-           const int* __restrict__ area, const unsigned* __restrict__ min_rank,
-           long long* __restrict__ units, int hw) {
-  const int u = blockIdx.y;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long key = 0;
-  if (p < hw) {
-    const size_t i = static_cast<size_t>(u) * hw + p;
-    if (fg[i] && labels[i] == p) {
-      key = (static_cast<unsigned long long>(area[i]) << 32) |
-            static_cast<unsigned long long>(0xFFFFFFFFu - min_rank[i]);
-    }
-  }
-  for (int d = 16; d > 0; d >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(kFull, key, d);
-    key = o > key ? o : key;
-  }
-  if ((threadIdx.x & 31) == 0 && key != 0) {
-    atomicMax(reinterpret_cast<unsigned long long*>(units + static_cast<size_t>(u) * kUnitCols + kKey),
-              key);
+    if (cur >= 0 && lane == __ffs(peers) - 1) flush(cur, total, x0, y, pair);
   }
 }
 
@@ -157,20 +157,39 @@ __device__ inline T block_reduce(T v, Op op, T* shared) {
   if ((threadIdx.x & 31) == 0) shared[warp] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int k = 1; k < static_cast<int>(blockDim.x >> 5); ++k) v = op(v, shared[k]);
+    for (int k = 1; k < kThreads / 32; ++k) v = op(v, shared[k]);
   }
   return v;  // valid in thread 0
 }
 
-// pass 3: grid (pixel blocks of a unit, U), each thread striding over the
-// unit's pixels
+// pass 2: grid (CTAs of a unit, U) over the unit's slots
+__global__ void __launch_bounds__(kThreads)
+key_kernel(const unsigned long long* __restrict__ slots, long long* __restrict__ units, int nb) {
+  __shared__ unsigned long long s_red[kThreads / 32];
+  const int u = blockIdx.y;
+  const unsigned long long* us = slots + static_cast<size_t>(u) * nb;
+  unsigned long long key = 0;
+  for (int b = blockIdx.x * kThreads + threadIdx.x; b < nb; b += gridDim.x * kThreads) {
+    const unsigned long long s = us[b];
+    const unsigned long long area = s & 0xFFFFFFFFull;
+    const unsigned long long k = (area << 32) | (s >> 32);
+    key = area && k > key ? k : key;
+  }
+  auto hi = [](unsigned long long a, unsigned long long b) { return a > b ? a : b; };
+  key = block_reduce(key, hi, s_red);
+  if (threadIdx.x == 0 && key != 0) {
+    atomicMax(reinterpret_cast<unsigned long long*>(units + static_cast<size_t>(u) * kUnitCols + kKey),
+              key);
+  }
+}
+
+// pass 3: grid (CTAs of a unit, U), each striding over row segments
 __global__ void __launch_bounds__(kThreads)
 winner_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ fg,
-              uint8_t* __restrict__ mask, long long* __restrict__ units, int H, int W) {
+              uint8_t* __restrict__ mask, long long* __restrict__ units, int H, int W, int vec) {
   __shared__ long long s_red[kThreads / 32];
   const int u = blockIdx.y;
-  const int hw = H * W;
-  const size_t base = static_cast<size_t>(u) * hw;
+  const size_t base = static_cast<size_t>(u) * H * W;
   long long* r = units + static_cast<size_t>(u) * kUnitCols;
   const unsigned long long key = static_cast<unsigned long long>(r[kKey]);
   int win = -1;
@@ -181,42 +200,59 @@ winner_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ fg,
     const int b = static_cast<int>(rank >> 2);
     const int y = (b / bw) * 2 + static_cast<int>((rank >> 1) & 1u);
     const int x = (b % bw) * 2 + static_cast<int>(rank & 1u);
-    win = labels[base + y * W + x];
+    win = labels[base + static_cast<size_t>(y) * W + x];
   }
+  const int segs = (W + kSeg - 1) / kSeg;
   long long sx = 0, sy = 0;
-  long long rlo = H, rhi = 0, clo = W, chi = 0;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < hw; p += gridDim.x * blockDim.x) {
-    const size_t i = base + p;
-    const bool m = win >= 0 && fg[i] && labels[i] == win;
-    mask[i] = m;
-    if (m) {
-      const int y = p / W;
-      const int x = p - y * W;
-      sx += x;
-      sy += y;
-      rlo = min(rlo, static_cast<long long>(y));
-      rhi = max(rhi, static_cast<long long>(y) + 1);
-      clo = min(clo, static_cast<long long>(x));
-      chi = max(chi, static_cast<long long>(x) + 1);
+  int rlo = 0, rhi = 0, clo = 0, chi = 0;  // max(H - y), max(y + 1), max(W - x), max(x + 1)
+  for (int item = blockIdx.x; item < H * segs; item += gridDim.x) {
+    const int y = item / segs;
+    const int x = (item - y * segs) * kSeg + 4 * threadIdx.x;
+    const int n = max(0, min(4, W - x));
+    if (n == 0) continue;
+    const size_t i = base + static_cast<size_t>(y) * W + x;
+    int l[4];
+    bool f[4];
+    load4(labels, fg, i, n, vec, l, f);
+    uint8_t m[4];
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m[j] = win >= 0 && f[j] && l[j] == win;
+      if (m[j]) {
+        ++cnt;
+        sx += x + j;
+        clo = max(clo, W - x - j);
+        chi = max(chi, x + j + 1);
+      }
+    }
+    if (cnt) {
+      sy += static_cast<long long>(cnt) * y;
+      rlo = max(rlo, H - y);
+      rhi = max(rhi, y + 1);
+    }
+    if (vec && n == 4) {
+      *reinterpret_cast<uchar4*>(mask + i) = make_uchar4(m[0], m[1], m[2], m[3]);
+    } else {
+      for (int j = 0; j < n; ++j) mask[i + j] = m[j];
     }
   }
-  if (win < 0) return;  // block-uniform
+  if (!__syncthreads_or(rhi > 0)) return;  // block-uniform
   auto add = [](long long a, long long b) { return a + b; };
-  auto lo = [](long long a, long long b) { return a < b ? a : b; };
   auto hi = [](long long a, long long b) { return a > b ? a : b; };
   sx = block_reduce(sx, add, s_red);
   sy = block_reduce(sy, add, s_red);
-  rlo = block_reduce(rlo, lo, s_red);
-  rhi = block_reduce(rhi, hi, s_red);
-  clo = block_reduce(clo, lo, s_red);
-  chi = block_reduce(chi, hi, s_red);
+  const long long e0 = block_reduce(static_cast<long long>(rlo), hi, s_red);
+  const long long e1 = block_reduce(static_cast<long long>(rhi), hi, s_red);
+  const long long e2 = block_reduce(static_cast<long long>(clo), hi, s_red);
+  const long long e3 = block_reduce(static_cast<long long>(chi), hi, s_red);
   if (threadIdx.x == 0) {
     atomicAdd(reinterpret_cast<unsigned long long*>(r + kSx), static_cast<unsigned long long>(sx));
     atomicAdd(reinterpret_cast<unsigned long long*>(r + kSy), static_cast<unsigned long long>(sy));
-    atomicMin(r + kRowLo, rlo);
-    atomicMax(r + kRowHi, rhi);
-    atomicMin(r + kColLo, clo);
-    atomicMax(r + kColHi, chi);
+    atomicMax(r + kRowLo, e0);
+    atomicMax(r + kRowHi, e1);
+    atomicMax(r + kColLo, e2);
+    atomicMax(r + kColHi, e3);
   }
 }
 
@@ -228,50 +264,46 @@ __global__ void finish_kernel(const long long* __restrict__ units,
   const long long* r = units + static_cast<size_t>(u) * kUnitCols;
   long long* s = stats + static_cast<size_t>(u) * 8;
   const long long a = static_cast<long long>(static_cast<unsigned long long>(r[kKey]) >> 32);
-  const bool has = a > 0;
   s[0] = a;
-  s[1] = has ? r[kSx] : 0;
-  s[2] = has ? r[kSy] : 0;
-  s[3] = has;
-  s[4] = has ? r[kRowLo] : H;
-  s[5] = has ? r[kRowHi] : 0;
-  s[6] = has ? r[kColLo] : W;
-  s[7] = has ? r[kColHi] : 0;
+  s[1] = r[kSx];
+  s[2] = r[kSy];
+  s[3] = a > 0;
+  s[4] = H - r[kRowLo];
+  s[5] = r[kRowHi];
+  s[6] = W - r[kColLo];
+  s[7] = r[kColHi];
 }
 
 }  // namespace
 
+// scratch: U * 8 int64 unit rows, then U * ceil(H/2) * ceil(W/2) 8-byte
+// slots (ops/cc.py: component_stats allocates it); zeroed here
 extern "C" int tik_component_stats(const void* labels, const void* fg, void* mask,
-                                   void* stats, void* slots, void* units, void* err,
-                                   int U, int H, int W, void* stream) {
-  const int n = U * H * W;
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
+                                   void* stats, void* scratch, void* err, int U, int H, int W,
+                                   void* stream) {
+  if (U <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lab = static_cast<const int*>(labels);
   const uint8_t* f = static_cast<const uint8_t*>(fg);
-  int* area = static_cast<int*>(slots);
-  unsigned* rank = reinterpret_cast<unsigned*>(area + n);
-  long long* un = static_cast<long long*>(units);
-  const int hw = H * W;
-  cudaError_t rc;
-  if ((rc = cudaMemsetAsync(area, 0, sizeof(int) * static_cast<size_t>(n), s)) != cudaSuccess ||
-      (rc = cudaMemsetAsync(rank, 0xFF, sizeof(unsigned) * static_cast<size_t>(n), s)) !=
-          cudaSuccess) {
-    return static_cast<int>(rc);
-  }
-  init_units_kernel<<<(U + 127) / 128, 128, 0, s>>>(un, U, H, W);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  long long* un = static_cast<long long*>(scratch);
+  auto* slots = reinterpret_cast<unsigned long long*>(un + static_cast<size_t>(U) * kUnitCols);
+  const int nb = ((H + 1) >> 1) * ((W + 1) >> 1);
+  const size_t bytes = 8 * (static_cast<size_t>(U) * kUnitCols + static_cast<size_t>(U) * nb);
+  cudaError_t rc = cudaMemsetAsync(scratch, 0, bytes, s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int vec = (W % 4 == 0) && (reinterpret_cast<uintptr_t>(labels) & 15) == 0 &&
+                  (reinterpret_cast<uintptr_t>(fg) & 3) == 0 &&
+                  (reinterpret_cast<uintptr_t>(mask) & 3) == 0;
   const int segs = (W + kSeg - 1) / kSeg;
-  const long long nseg = static_cast<long long>(U) * H * segs;
-  area_kernel<<<static_cast<int>((nseg + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      lab, f, area, rank, static_cast<int*>(err), U, H, W, segs);
+  const int per_unit = std::max(1, std::min((kCtas + U - 1) / U, H * segs));
+  const dim3 pix_grid(per_unit, U);
+  area_kernel<<<pix_grid, kThreads, 0, s>>>(lab, f, slots, static_cast<int*>(err), H, W, vec);
   if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  const dim3 pix_grid((hw + kThreads - 1) / kThreads, U);
-  key_kernel<<<pix_grid, kThreads, 0, s>>>(lab, f, area, rank, un, hw);
+  const dim3 key_grid(std::max(1, std::min((kCtas + U - 1) / U, (nb + kThreads - 1) / kThreads)),
+                      U);
+  key_kernel<<<key_grid, kThreads, 0, s>>>(slots, un, nb);
   if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  // 8 pixels a thread: enough blocks to fill the card at one whole plane
-  const dim3 win_grid((hw + 8 * kThreads - 1) / (8 * kThreads), U);
-  winner_kernel<<<win_grid, kThreads, 0, s>>>(lab, f, static_cast<uint8_t*>(mask), un, H, W);
+  winner_kernel<<<pix_grid, kThreads, 0, s>>>(lab, f, static_cast<uint8_t*>(mask), un, H, W, vec);
   if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
   finish_kernel<<<(U + 127) / 128, 128, 0, s>>>(un, static_cast<long long*>(stats), U, H, W);
   return static_cast<int>(cudaGetLastError());

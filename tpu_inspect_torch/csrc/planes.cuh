@@ -163,12 +163,15 @@ __device__ inline void unpack(const uint32_t* P, uint8_t* __restrict__ dst, cons
 // On bit planes an erode is an AND and a dilate an OR of shifted words. A
 // column window within +-32 px is reduced in registers from three words by
 // doubling (v op= v >> 1, >> 2, >> 4, ...): O(log reach) word operations.
-// A stage whose every group has such a window and at most kDirectRows row
-// offsets runs in ONE pass over the words (the default close/open and the
-// default ROI erode 6). A larger group (erode_px up to 200) runs the same
-// doubling as passes over shared memory, for the columns and, where its
-// rows are one contiguous run, for the rows: O(log reach) passes of a few
-// words a thread.
+// A stage whose every group has such a window and at most `pass_rows` row
+// offsets (kDirectRows unless the caller passes fewer) runs in ONE pass over
+// the words (the default close/open and the default ROI erode 6). Any other
+// stage takes a pass per group: its column window once a word, into a
+// scratch plane, then the row offsets from there (a rect's 13 rows read 13
+// words, not 13 windows); a larger group (erode_px up to 200) runs the
+// same doubling as passes over shared memory, for the columns and, where
+// its rows are one contiguous run, for the rows: O(log reach) passes of a
+// few words a thread.
 // ---------------------------------------------------------------------------
 
 constexpr int kDirectRows = 16;
@@ -265,15 +268,17 @@ __device__ inline void window(const uint32_t* src, uint32_t* dst, uint32_t* p0, 
   }
 }
 
-__device__ inline bool group_is_small(int lo, int hi, int nd) {
-  return lo >= -32 && hi <= 32 && nd <= kDirectRows;
+__device__ inline bool group_is_small(int lo, int hi, int nd, int pass_rows) {
+  return lo >= -32 && hi <= 32 && nd <= pass_rows;
 }
 
-// Runs the stage program on plane a; b, t, p0, p1 are scratch planes.
-// Returns the plane holding the result (a or b). Ends with a barrier.
+// Runs the stage program on plane a; b, t, p0, p1 are scratch planes (t,
+// p0 and p1 only for a stage not run in one pass). Returns the plane
+// holding the result (a or b). Ends with a barrier.
 __device__ inline uint32_t* apply_stages(const int* __restrict__ prog, uint32_t* a,
                                          uint32_t* b, uint32_t* t, uint32_t* p0,
-                                         uint32_t* p1, const Bits& g) {
+                                         uint32_t* p1, const Bits& g,
+                                         int pass_rows = kDirectRows) {
   int p = 0;
   const int n_stages = prog[p++];
   for (int s = 0; s < n_stages; ++s) {
@@ -284,7 +289,7 @@ __device__ inline uint32_t* apply_stages(const int* __restrict__ prog, uint32_t*
     bool small = true;
     for (int q = 0; q < n_groups; ++q) {
       const int lo = prog[p], hi = prog[p + 1], nd = prog[p + 2];
-      small = small && lo <= hi && group_is_small(lo, hi, nd);
+      small = small && lo <= hi && group_is_small(lo, hi, nd, pass_rows);
       p += 3 + nd;
     }
     if (small) {

@@ -81,7 +81,6 @@ from tpu_inspect_torch.ops.median import median_blur_u8, median_residual_mask
 from tpu_inspect_torch.ops.morphology import (
     close_open_stages,
     morph_chain,
-    open_stages,
     rect_erode_stages,
 )
 from tpu_inspect_torch.ops.threshold import (
@@ -264,7 +263,7 @@ def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None, err=None)
     JAX package's ``raw_segment`` + ``largest_component_sums`` and
     ``_defect_roi_fallback``. ``err``: the bound flag kernels D, E and F
     set, read by the caller; without one each launch reads its own."""
-    m = tail_mask(x, stages, thr, morph=morph_chain)
+    m = tail_mask(x, stages, thr, chain=morph_chain)
     if fill:
         m = m | ~exterior_background(m, err)
     best, stats = component_stats(label_components(m, err), m, err)
@@ -292,7 +291,7 @@ def _whole_blobs(fg, max_x2, *, min_x2: int, roi=None, pre_open=False, err=None)
     port of ``contour.filter_and_select`` at whole-image size): the fill
     regions (:func:`_fill_regions`), then kernel G for the Green's filter
     and the paint. ``err`` as for :func:`_whole_tail`."""
-    m = candidate_mask(fg, roi, pre_open, morph=morph_chain)
+    m = candidate_mask(fg, roi, pre_open, chain=morph_chain)
     return blob_select(*_fill_regions(m, err), max_x2, min_x2=min_x2, err=err)
 
 
@@ -560,12 +559,12 @@ def defect_intermediates(crop, seg_mask, params: DefectParams,
     if out["roi_empty"]:
         build.check_bounded("defect_intermediates", err)
         return out
-    cand = _candidates(crops, params, st, err)
-    cand = torch.where(roi > 0, cand, torch.zeros_like(cand))
-    if params.method == "threshold":
-        cand = morph_chain(cand, open_stages(3))
-        out["resid_area"] = int((cand > 0).sum())
-    analysis = analyze_blobs(cand > 0, err)
+    # the ROI AND, and the threshold method's 3x3 open: kernel I on the card
+    pre_open = params.method == "threshold"
+    cand = candidate_mask(_candidates(crops, params, st, err), roi, pre_open, chain=morph_chain)
+    if pre_open:
+        out["resid_area"] = int(cand.sum())
+    analysis = analyze_blobs(cand, err)
     build.check_bounded("defect_intermediates", err)
     a2 = _to_numpy(analysis.contour_area_x2[0])
     roots = _to_numpy(analysis.is_root[0])

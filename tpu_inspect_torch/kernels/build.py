@@ -51,15 +51,16 @@ _SIGNATURES = {
     "tik_propagate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # fg, out, parent, bits, err, U, H, W, stream
     "tik_label": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # labels, fg, mask, stats, slots, units, err, U, H, W, stream
-    "tik_component_stats": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # labels, fg, mask, stats, scratch, err, U, H, W, stream
+    "tik_component_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # fill_labels, top, ext, max_x2, table, out, area, sums, err, U, H, W,
     # min_x2, stream
     "tik_blob_select": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, out, U, H, W, k, strip rows, stream
     "tik_median_blur": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # in, out, stage, U, H, W, erode, rx, ry, tile rows, stream
-    "tik_morph_stage": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, thr, roi, out, prog, U, H, W, tile rows, tile words, row reach,
+    # column reach, big, stream
+    "tik_morph_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # fg, mask, stats, scratch, err, U, H, W, stream
     "tik_label_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, thr, prog, roi_prog, zone, seg_out, seg_stats, roi_out, roi_stats,

@@ -34,21 +34,19 @@ from tpu_inspect_torch.ops.blob_select import blob_select_plain, contour_table
 from tpu_inspect_torch.ops.cc import label_components_plain
 from tpu_inspect_torch.ops.hole_fill import exterior_background_plain
 from tpu_inspect_torch.ops.morphology import (
-    apply_stages,
+    morph_chain_plain,
     open_stages,
     stage_program_tensor,
 )
 
 
-def candidate_mask(fg, roi=None, pre_open=False, morph=apply_stages) -> torch.Tensor:
-    """The filter's input: ``fg`` ANDed with ``roi`` (when given), then the
-    3x3-ellipse open by ``morph`` (with ``pre_open``; the plain version
-    keeps :func:`apply_stages`, the whole-image route passes kernel I's
-    ``morph_chain``); [U, H, W] bool."""
-    v = fg if roi is None else torch.where(roi > 0, fg, torch.zeros_like(fg))
-    if pre_open:
-        v = morph(v, open_stages(3))
-    return v > 0
+def candidate_mask(fg, roi=None, pre_open=False, chain=morph_chain_plain) -> torch.Tensor:
+    """The filter's input: ``fg != 0`` ANDed with ``roi != 0`` (when given),
+    then the 3x3-ellipse open (with ``pre_open``), by ``chain`` (the plain
+    version keeps :func:`tpu_inspect_torch.ops.morphology.morph_chain_plain`;
+    the whole-image route and the diagnostic pass on the card pass kernel
+    I's ``morph_chain``, which fuses the ROI AND); [U, H, W] bool."""
+    return chain(fg, open_stages(3) if pre_open else (), roi=roi)
 
 
 def blob_filter_plain(fg, max_x2, *, min_x2: int, roi=None, pre_open=False):

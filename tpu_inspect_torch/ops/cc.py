@@ -195,17 +195,19 @@ def component_stats(labels: torch.Tensor, fg: torch.Tensor, err=None):
     if fg.device.type == "cpu":
         return component_stats_plain(labels, fg != 0)
     u, h, w = fg.shape
-    if u * h * w >= 2**31:
+    if u * h * w >= 2**31 or u >= 65536:
         raise ValueError(f"component_stats: {u}x{h}x{w} too large for int32 indices")
     dev = fg.device
     mask = torch.empty((u, h, w), dtype=torch.uint8, device=dev)
     stats = torch.empty((u, 8), dtype=torch.int64, device=dev)
-    slots = torch.empty((2 * u * h * w,), dtype=torch.int32, device=dev)
-    units = torch.empty((u, 8), dtype=torch.int64, device=dev)
+    # a row per unit, then one (area, rank) slot per 2x2 block: the block
+    # of a component's root pixel is its own (the launcher zeroes it)
+    scratch = torch.empty((u * (8 + ((h + 1) // 2) * ((w + 1) // 2)),), dtype=torch.int64,
+                          device=dev)
     flag = error_flag(dev) if err is None else err
     code = build.lib().tik_component_stats(
         labels.data_ptr(), fg.data_ptr(), mask.data_ptr(), stats.data_ptr(),
-        slots.data_ptr(), units.data_ptr(), flag.data_ptr(), u, h, w,
+        scratch.data_ptr(), flag.data_ptr(), u, h, w,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("component_stats", code)

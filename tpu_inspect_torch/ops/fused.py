@@ -35,22 +35,18 @@ from tpu_inspect_torch.kernels import (
 )
 from tpu_inspect_torch.ops.cc import largest_component
 from tpu_inspect_torch.ops.hole_fill import exterior_background_plain
-from tpu_inspect_torch.ops.morphology import apply_stages, stage_program_tensor
-from tpu_inspect_torch.ops.threshold import threshold_binary_inv
+from tpu_inspect_torch.ops.morphology import morph_chain_plain, stage_program_tensor
 
 STAT_FIELDS = ("area", "sx", "sy", "has_fg", "row_lo", "row_hi", "col_lo", "col_hi")
 
 
-def tail_mask(x, stages=(), thr=None, morph=apply_stages) -> torch.Tensor:
-    """The tail's head: ``x <= thr`` (or ``x > 0`` without ``thr``), then
-    the erode/dilate stage chain by ``morph`` (the plain version keeps
-    :func:`apply_stages`; the whole-image route passes kernel I's
-    ``morph_chain``); [U, H, W] bool."""
-    if thr is not None:
-        v = threshold_binary_inv(x, thr)
-    else:
-        v = torch.where(x > 0, 255, 0).to(torch.uint8)
-    return morph(v, stages) > 0
+def tail_mask(x, stages=(), thr=None, chain=morph_chain_plain) -> torch.Tensor:
+    """The tail's head and stage chain: ``x <= thr`` (or ``x != 0`` without
+    ``thr``), then the erode/dilate stage chain, by ``chain`` (the plain
+    version keeps :func:`tpu_inspect_torch.ops.morphology.morph_chain_plain`;
+    the whole-image route passes kernel I's ``morph_chain``, which fuses the
+    head); [U, H, W] bool."""
+    return chain(x, stages, thr=thr)
 
 
 def seg_tail_fits(h: int, w: int) -> bool:

@@ -9,11 +9,13 @@ contiguous column run ``[lo, hi]`` around the anchor. Out-of-image samples
 are the op's neutral (255 for erode, 0 for dilate), which is OpenCV's
 morphologyDefaultBorderValue.
 
-:func:`morph_chain` runs a stage chain: ``csrc/morph.cu`` (the port of
+:func:`morph_chain` runs a stage chain on masks, its head (a threshold
+compare, ``!= 0``, an ROI AND) fused: ``csrc/morph.cu`` (the port of
 :func:`tpu_inspect.ops.morph_pallas._morph_chain`) for CUDA tensors, one
-launch per stage, and :func:`apply_stages` for CPU tensors. Kernels A and
-C run the same programs inside their own CTAs (``csrc/planes.cuh``), and
-their plain versions call :func:`apply_stages` directly.
+launch a chain on bit planes, and :func:`morph_chain_plain` (the head, then
+:func:`apply_stages` on 0/255 planes, then ``> 0``) for CPU tensors.
+Kernels A and C run the same programs inside their own CTAs
+(``csrc/planes.cuh``), and their plain versions call the plain chain.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes
+from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build, check_vector
 
 
 def ellipse_se(k: int) -> np.ndarray:
@@ -192,74 +194,127 @@ def apply_stages(v: torch.Tensor, stages) -> torch.Tensor:
     return v
 
 
-_MORPH_TILE_W = 32  # csrc/morph.cu: kTileW
-_MORPH_SMEM_FAST = 64 * 1024
-_MORPH_SMEM_MAX = 232448  # a Hopper block's dynamic shared memory
+_SMEM_FAST = 64 * 1024  # tiles within this keep several CTAs an SM
+_SMEM_MAX = 232448  # a Hopper block's dynamic shared memory
+_SM_COUNT = 132  # H100 SXM
 
 
-def _morph_smem(th: int, rx: int, ry: int) -> int:
-    """Shared bytes of kernel I's tile: the input tile plus halo and the
-    horizontal buffer (``csrc/morph.cu: launch``)."""
-    return (th + 2 * ry) * (2 * _MORPH_TILE_W + 2 * rx)
+_ONE_PASS_ROWS = 3  # csrc/morph.cu: kOnePassRows
 
 
-def morph_tile_rows(rx: int, ry: int) -> int | None:
-    """Kernel I's output tile rows for a stage reaching rx columns and ry
-    rows: the most of 32, 16, 8 within 64 KB of shared memory, else 8 while
-    it fits a block at all, else None (the stage is refused)."""
-    for th in (32, 16, 8):
-        if _morph_smem(th, rx, ry) <= _MORPH_SMEM_FAST:
-            return th
-    return 8 if _morph_smem(8, rx, ry) <= _MORPH_SMEM_MAX else None
+def _stage_is_small(groups) -> bool:
+    """Whether kernel I's ``apply_stages`` (``csrc/planes.cuh``) runs a stage
+    in its one pass from registers: every group's column window within +-32
+    pixels and at most ``_ONE_PASS_ROWS`` row offsets. Otherwise it takes a
+    pass per group (each row's column window once, then the rows), which
+    needs three more scratch planes."""
+    return all(lo <= hi and lo >= -32 and hi <= 32 and len(dys) <= _ONE_PASS_ROWS
+               for lo, hi, dys in groups)
 
 
 @functools.lru_cache(maxsize=64)
-def _stage_layout(stages) -> tuple[tuple[int, bool, int, int], ...]:
-    """Per stage of :func:`stage_program`'s program: (word offset of its op,
-    erode, column reach rx, row reach ry)."""
-    out, p = [], 1
-    for op, runs in stages:
+def _stage_layout(stages) -> tuple[tuple[int, int, bool], ...]:
+    """Per stage: (column reach rx, row reach ry, run in one pass)."""
+    out = []
+    for _, runs in stages:
         groups = group_runs(runs)
         rx = max(max(-lo, hi, 0) for lo, hi, _ in groups)
         ry = max(abs(dy) for _, _, dys in groups for dy in dys)
-        out.append((p, op == "erode", rx, ry))
-        p += 2 + sum(3 + len(dys) for _, _, dys in groups)
+        out.append((rx, ry, _stage_is_small(groups)))
     return tuple(out)
 
 
-def morph_chain(x: torch.Tensor, stages) -> torch.Tensor:
-    """Apply a stage chain to [U, H, W] uint8 planes; kernel I.
+@functools.lru_cache(maxsize=256)
+def morph_tiles(u: int, h: int, w: int, stages):
+    """Kernel I's tiling of a chain on [u, h, w] masks: (tile rows, tile
+    words, row reach, column reach, big, shared bytes), or None when no
+    tile fits a block's shared memory.
 
-    The result is :func:`apply_stages`'s (OpenCV borders: out-of-plane
-    samples are 255 for erode, 0 for dilate). On CUDA each stage is one
-    launch of ``csrc/morph.cu`` over ping-pong buffers; an empty chain
-    returns ``x``. A stage whose reach does not fit a block's shared memory
-    (above 223 pixels each way) raises ValueError."""
-    check_planes(x, "morph_chain")
+    A CTA reads its tile plus a halo of the chain's summed reach each way,
+    clipped to the plane, into 2 bit planes of shared memory (5 with a
+    stage not run in one pass, ``big``). Among tiles of 8-512 rows and 1-32
+    words, the pick prefers one within 64 KB, then the least modeled time:
+    the buffers' words spread over 132 SMs, or one CTA's buffer at a
+    quarter of an SM, whichever is longer; then the fewest words in all."""
+    layout = _stage_layout(tuple(stages))
+    rx = sum(s[0] for s in layout)
+    ry = sum(s[1] for s in layout)
+    big = not all(s[2] for s in layout)
+    ww = (w + 31) // 32
+    rww = (rx + 31) // 32
+    planes = 5 if big else 2
+    best = None
+    for th in (8, 16, 32, 64, 128, 256, 512):
+        for tww in (1, 2, 4, 8, 16, 32):
+            t_h, t_w = min(th, h), min(tww, ww)
+            words = min(h, t_h + 2 * ry) * min(ww, t_w + 2 * rww)
+            smem = 4 * planes * words
+            n_rows = -(-h // t_h)
+            if smem > _SMEM_MAX or n_rows > 65535:
+                continue
+            ctas = u * n_rows * -(-ww // t_w)
+            key = (smem > _SMEM_FAST, max(ctas * words / _SM_COUNT, 4 * words), ctas * words)
+            if best is None or key < best[0]:
+                best = (key, (t_h, t_w, ry, rx, big, smem))
+    return None if best is None else best[1]
+
+
+def _head(x: torch.Tensor, thr, roi) -> torch.Tensor:
+    """The chain's head as a bool plane: ``x <= thr[u]`` with ``thr``, else
+    ``x != 0``; ANDed with ``roi != 0`` with ``roi``."""
+    if thr is not None:
+        m = x.to(torch.int32) <= thr.to(torch.int32).reshape(-1, 1, 1)
+    else:
+        m = x != 0
+    return m if roi is None else m & (roi != 0)
+
+
+def morph_chain_plain(x: torch.Tensor, stages, thr=None, roi=None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`morph_chain` (same contract):
+    ``apply_stages(head * 255, stages) > 0``; it launches no kernel."""
+    return apply_stages(_head(x, thr, roi).to(torch.uint8) * 255, tuple(stages)) > 0
+
+
+def morph_chain(x: torch.Tensor, stages, thr=None, roi=None) -> torch.Tensor:
+    """A stage chain on [U, H, W] masks, its head fused; kernel I.
+
+    ``x`` [U, H, W] bool or uint8; the head is ``x <= thr[u]`` with ``thr``
+    ([U] int32, THRESH_BINARY_INV: the seg tail's), else ``x != 0``, ANDed
+    with ``roi != 0`` with ``roi`` (bool or uint8, x's shape: the defect
+    candidates'). Returns the chain's result as a [U, H, W] bool plane:
+    :func:`morph_chain_plain`'s, i.e. ``apply_stages(head * 255) > 0``
+    (OpenCV borders: out-of-plane samples are each stage's neutral). On CUDA
+    the whole chain, head included, is one launch of ``csrc/morph.cu``
+    (an empty chain too: the head alone); on the CPU the plain version
+    runs. A chain whose summed reach leaves no tile within a block's shared
+    memory (a rect erode above 288 pixels each way on a 4096x3000 plane;
+    every ``morph_kernel`` and ``erode_px`` the config allows fits) raises
+    ValueError."""
+    x = as_planes(x, "morph_chain")
+    u, h, w = x.shape
+    if thr is not None:
+        check_vector(thr, "morph_chain thr", u, x.device)
+    if roi is not None:
+        roi = as_planes(roi, "morph_chain roi")
+        if roi.shape != x.shape or roi.device != x.device:
+            raise ValueError("morph_chain: roi must match x in shape and device")
     stages = tuple(stages)
     if x.device.type == "cpu":
-        return apply_stages(x, stages)
-    if not stages:
-        return x
-    u, h, w = x.shape
+        return morph_chain_plain(x, stages, thr, roi)
     if u >= 65536:
         raise ValueError(f"morph_chain: {u} units beyond the kernel's grid")
-    layout = _stage_layout(stages)
-    rows = [morph_tile_rows(rx, ry) for _, _, rx, ry in layout]
-    if None in rows:
-        raise ValueError("morph_chain: a stage's reach does not fit a block's shared memory")
+    tiles = morph_tiles(u, h, w, stages)
+    if tiles is None:
+        raise ValueError("morph_chain: the chain's reach leaves no tile within a block's "
+                         "shared memory")
+    th, tww, ry, rx, big, _ = tiles
     prog = stage_program_tensor(stages, str(x.device))
-    n = len(stages)
-    bufs = (torch.empty_like(x), torch.empty_like(x) if n > 1 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    src = x
-    for i, ((off, erode, rx, ry), th) in enumerate(zip(layout, rows)):
-        dst = bufs[(n - 1 - i) % 2]  # the last stage writes bufs[0]
-        err = build.lib().tik_morph_stage(
-            src.data_ptr(), dst.data_ptr(), prog.data_ptr() + 4 * off, u, h, w,
-            int(erode), rx, ry, th, stream,
-        )
-        build.check("morph_chain", err)
-        LAUNCHES["morph"] += 1
-        src = dst
-    return src
+    out = torch.empty((u, h, w), dtype=torch.uint8, device=x.device)
+    err = build.lib().tik_morph_chain(
+        x.data_ptr(), None if thr is None else thr.data_ptr(),
+        None if roi is None else roi.data_ptr(), out.data_ptr(), prog.data_ptr(), u, h, w,
+        th, tww, ry, rx, int(big), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("morph_chain", err)
+    LAUNCHES["morph"] += 1
+    return out.view(torch.bool)

@@ -226,13 +226,13 @@ def erosion_outline_mask(
     On ``device``: the (2n+1)^2 erode (kernel I), the largest component
     (kernel J), the 1-px inner erode (kernel I again)."""
     dev = resolve_device(device)
-    m = torch.from_numpy((np.asarray(seg_mask) > 0).astype(np.uint8) * 255)[None].to(dev)
+    m = torch.from_numpy(np.asarray(seg_mask) > 0)[None].to(dev)
     m = morph_chain(m, rect_erode_stages(int(erode_px)))
-    largest, stats = largest_component_sums(m > 0)
+    largest, stats = largest_component_sums(m)
     if not int(stats[0, 3]):
         return None
-    inner = morph_chain(largest.to(torch.uint8) * 255, rect_erode_stages(1))
-    return (largest[0] & ~(inner[0] > 0)).cpu().numpy()
+    inner = morph_chain(largest, rect_erode_stages(1))
+    return (largest[0] & ~inner[0]).cpu().numpy()
 
 
 def erosion_inset_rect(

@@ -1,5 +1,6 @@
-"""Time one form of kernel B, D, E or H at a time, checked exact against its
-plain version: the rig to iterate on a kernel without a whole chip_smoke run.
+"""Time one form of kernel B, D, E, F, H or I at a time, checked exact against
+its plain version: the rig to iterate on a kernel without a whole chip_smoke
+run.
 
 The port of ``tools/kernel_bench.py`` (which times the JAX package's Pallas
 kernels one by one). Its planes are ``chip_smoke.py``'s: the standard
@@ -22,6 +23,11 @@ versions and the times are host walls of those, not device times.
 capture instead (what the CPU test drives). ``--strips`` runs each form of
 B and H once for each strip length given (rows a thread walks; the
 default is ``tpu_inspect_torch.ops.median.strip_rows``).
+
+To time an older tree's kernels on the same forms, run this file from the
+older tree's root with ``PYTHONPATH=.``: kernel I's forms then drive that
+tree's byte-plane chain (one launch a stage) with the head and the ``> 0``
+as torch ops, as its callers ran them.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     from tpu_inspect_torch.ops.fused import tail_mask
     from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
     from tpu_inspect_torch.ops.hole_fill import exterior_background
+    from tpu_inspect_torch.ops.cc import label_components, largest_component
     from tpu_inspect_torch.ops.median import median_residual_mask
     from tpu_inspect_torch.ops.morphology import close_open_stages, rect_erode_stages
     from tpu_inspect_torch.ops.threshold import otsu_threshold
@@ -90,7 +97,8 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     whole = image[None].contiguous()
     seg_w = engine._segment(whole, seg, excl, None, True)[0]
     x_w = gaussian_blur_u8(whole, seg.gaussian_blur)
-    seg_pre_w = tail_mask(x_w, close_open_stages(seg.morph_kernel), otsu_threshold(x_w))
+    thr_w = otsu_threshold(x_w)
+    seg_pre_w = tail_mask(x_w, close_open_stages(seg.morph_kernel), thr_w)
     seg_fill_w = seg_pre_w | exterior_background(seg_pre_w).logical_not()
     roi_w, roi_st_w = engine._whole_tail(seg_w, rect_erode_stages(dp.erode_px),
                                          out_largest=True)
@@ -108,7 +116,19 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     # pass take it
     rows.update(lo1=rows["lo"][u0 : u0 + 1], hi1=rows["hi"][u0 : u0 + 1])
     crop1 = crops[u0 : u0 + 1].contiguous()
+    # kernel I's inputs: the erosion preview's unit (its seg mask, and the
+    # largest component of its erosion for the 1-px inner erode); kernel
+    # F's: the whole route's two planes and their labels, and a plane of
+    # isolated pixels on a 2-pixel grid (the most components a plane holds)
+    seg1 = seg_masks[u0 : u0 + 1].contiguous()
+    roi_pre_w = tail_mask(seg_w, rect_erode_stages(dp.erode_px)).contiguous()
+    iso_w = torch.zeros_like(whole, dtype=torch.bool)
+    iso_w[:, ::2, ::2] = True
     return {
+        "x_w": x_w, "thr_w": thr_w, "seg_w": seg_w, "cand_w": cand_w, "roi_w": roi_w,
+        "seg1": seg1, "seg1_in": largest_component(tail_mask(seg1, rect_erode_stages(dp.erode_px)))[0],
+        "seg_lab_w": label_components(seg_fill_w), "roi_lab_w": label_components(roi_pre_w),
+        "iso_w": iso_w, "iso_lab_w": label_components(iso_w),
         "crops": crops, "whole": whole, "crop1": crop1, **rows,
         "roi_rows21_1": _roi_rows_bytes(crop1, 21, rows["lo1"], rows["hi1"]),
         **{f"roi_rows{k}": _roi_rows_bytes(crops, k, rows["lo"], rows["hi"]) for k in (21, 45)},
@@ -117,7 +137,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
         "strong": strong, "cand": cand_c, "free": (seg_masks == 0).contiguous(),
         "fg1": fg1, "fill1": fill1, "free1": fg1.logical_not().contiguous(),
         "free_w": seg_pre_w.logical_not().contiguous(), "seg_fill_w": seg_fill_w.contiguous(),
-        "roi_pre_w": tail_mask(seg_w, rect_erode_stages(dp.erode_px)).contiguous(),
+        "roi_pre_w": roi_pre_w,
         "free_mw": m_w.logical_not().contiguous(), "m_w": m_w.contiguous(),
         "seed_w": (m_w & (fill_w == lin)).contiguous(), "fill_plane_w": ext_w.logical_not().contiguous(),
     }
@@ -125,12 +145,20 @@ def planes(dev: torch.device, small: bool = False) -> dict:
 
 THR = 24  # DefectParams().threshold
 
+
+def _stages(name: str):
+    from tpu_inspect_torch.ops import morphology as m
+
+    kind, n = name.split()
+    return {"co": m.close_open_stages, "open": m.open_stages, "erode": m.rect_erode_stages}[kind](
+        int(n))
+
 # form -> (kernel, input names, call on (kernel function, planes, strip));
 # B's forms (the default k = 21 over the ROI rows, and k = 45, the largest
 # k it takes; one unit as the interactive calls take it), then D's four
 # paths (the 48 units' Canny hysteresis and the whole-image route's three),
-# E's, and H's (median_k = 47, the engine's smallest k on H, and 101; one
-# unit; 47 on the whole plane)
+# E's, H's (median_k = 47, the engine's smallest k on H, and 101; one
+# unit; 47 on the whole plane), I's and F's
 FORMS = {
     "B 48u k21 roi rows": ("median_residual", ("roi_rows21", "lo", "hi"),
                            lambda f, p, s: f(p["crops"], 21, THR, p["lo"], p["hi"], strip=s)),
@@ -166,6 +194,28 @@ FORMS = {
     "H 48u k101": ("median_blur", ("crops",), lambda f, p, s: f(p["crops"], 101, strip=s)),
     "H 1u k47": ("median_blur", ("crop1",), lambda f, p, s: f(p["crop1"], 47, strip=s)),
     "H whole k47": ("median_blur", ("whole",), lambda f, p, s: f(p["whole"], 47, strip=s)),
+    # I: the whole route's three chains (close/open with the seg tail's
+    # threshold head, the ROI erode, the candidates' open with the ROI
+    # head), the config's largest ROI erode and close/open, and the erosion
+    # preview's two erodes on one unit
+    "I whole close/open k3 thr head": ("morph", ("x_w", "thr_w"),
+                                       lambda f, p, s: f(p["x_w"], _stages("co 3"), p["thr_w"])),
+    "I whole erode 13x13": ("morph", ("seg_w",), lambda f, p, s: f(p["seg_w"], _stages("erode 6"))),
+    "I whole erode 401x401": ("morph", ("seg_w",),
+                              lambda f, p, s: f(p["seg_w"], _stages("erode 200"))),
+    "I whole open 3x3 roi head": ("morph", ("cand_w", "roi_w"),
+                                  lambda f, p, s: f(p["cand_w"], _stages("open 3"), roi=p["roi_w"])),
+    "I whole close/open k31 thr head": ("morph", ("x_w", "thr_w"),
+                                        lambda f, p, s: f(p["x_w"], _stages("co 31"), p["thr_w"])),
+    "I 1u erode 13x13": ("morph", ("seg1",), lambda f, p, s: f(p["seg1"], _stages("erode 6"))),
+    "I 1u erode 3x3": ("morph", ("seg1_in",), lambda f, p, s: f(p["seg1_in"], _stages("erode 1"))),
+    # F: the whole route's two calls, and the isolated-pixel grid
+    "F whole seg mask": ("cc_stats", ("seg_lab_w", "seg_fill_w"),
+                         lambda f, p, s: f(p["seg_lab_w"], p["seg_fill_w"])),
+    "F whole ROI": ("cc_stats", ("roi_lab_w", "roi_pre_w"),
+                    lambda f, p, s: f(p["roi_lab_w"], p["roi_pre_w"])),
+    "F whole isolated px grid": ("cc_stats", ("iso_lab_w", "iso_w"),
+                                 lambda f, p, s: f(p["iso_lab_w"], p["iso_w"])),
 }
 # the kernels whose forms take a strip length
 STRIPPED = ("median_residual", "median_blur")
@@ -183,13 +233,38 @@ def kernels() -> dict:
         median_residual_mask_plain,
     )
 
+    from tpu_inspect_torch.ops import morphology
+    from tpu_inspect_torch.ops.cc import component_stats, component_stats_plain
+
     def stripless(plain):  # the plain versions walk no strips
         return lambda *a, strip=None, **kw: plain(*a, **kw)
 
+    chain = morphology.morph_chain
+    chain_plain = getattr(morphology, "morph_chain_plain", None)
+    if chain_plain is None:  # an older tree: byte planes in and out
+        chain, chain_plain = _byte_chain(chain), _byte_chain(morphology.apply_stages)
     return {"propagate": (propagate, propagate_plain, True),
             "label": (label_components, label_components_plain, True),
             "median_residual": (_median_residual, stripless(median_residual_mask_plain), False),
-            "median_blur": (_median_blur, stripless(median_blur_u8_plain), False)}
+            "median_blur": (_median_blur, stripless(median_blur_u8_plain), False),
+            "morph": (chain, chain_plain, False),
+            "cc_stats": (component_stats, component_stats_plain, True)}
+
+
+def _byte_chain(chain):
+    """The mask chain's contract over a byte-plane stage chain: the head
+    (``x <= thr`` or ``x > 0`` as 0/255, or ``x`` where ``roi > 0``) and the
+    ``> 0`` of the result as the torch ops its callers ran."""
+    def run(x, stages, thr=None, roi=None):
+        if thr is not None:
+            v = torch.where(x.to(torch.int32) <= thr.reshape(-1, 1, 1), 255, 0).to(torch.uint8)
+        elif roi is not None:
+            v = torch.where(roi > 0, x, torch.zeros_like(x))
+        else:
+            v = torch.where(x > 0, 255, 0).to(torch.uint8)
+        return chain(v, stages) > 0
+
+    return run
 
 
 def _ms(fn, dev: torch.device, n: int, reps: int) -> float:
@@ -246,19 +321,22 @@ def bench(forms=tuple(FORMS), device="cuda", small: bool = False, n: int = 20,
         fast, plain, flagged = fns[name]
         ref = call(plain, p, None)
         plain_ms = _ms(lambda: call(plain, p, None), dev, max(1, n // 10), reps)
+        refs = ref if isinstance(ref, tuple) else (ref,)
         for strip in strips if name in STRIPPED else (None,):
             got = call(fast, p, strip)
-            err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
-            if got.dtype != ref.dtype or err:
+            gots = got if isinstance(got, tuple) else (got,)
+            err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max()) if g.numel() else 0
+                      for g, r in zip(gots, refs))
+            if any(g.dtype != r.dtype for g, r in zip(gots, refs)) or err:
                 raise RuntimeError(f"kernel_bench: {form} (strip {strip}) differs from its plain "
-                                   f"version (max |err| {err}, {got.dtype} vs {ref.dtype})")
+                                   f"version (max |err| {err})")
             moved = sum(p[k] if isinstance(p[k], int) else p[k].numel() * p[k].element_size()
                         for k in inputs)
-            moved += got.numel() * got.element_size()
+            moved += sum(g.numel() * g.element_size() for g in gots)
             flag = error_flag(dev)
             one_flag = partial(fast, err=flag) if flagged and dev.type == "cuda" else fast
             rows.append({
-                "form": form, "kernel": name, "strip": strip, "shape": list(got.shape),
+                "form": form, "kernel": name, "strip": strip, "shape": list(gots[0].shape),
                 "max_abs_err": err,
                 "ms": _ms(lambda: call(one_flag, p, strip), dev, n, reps),
                 "ms_flag_each_call": (_ms(lambda: call(fast, p, strip), dev, n, reps)
