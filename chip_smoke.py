@@ -749,7 +749,7 @@ def main() -> int:
         "blob_select": (flagged(blob_select), blob_select_plain),
         "median_blur": (median_blur_u8, median_blur_u8_plain),
         "morph": (morph_chain, morph_chain_plain),
-        "label_stats": (largest_component_sums, largest_component),
+        "label_stats": (flagged(largest_component_sums), largest_component),
         "seg_roi_tail": (flagged(seg_roi_tail), seg_roi_tail_plain),
         "median_probe": (median_probe.probe, probe_plain),
         "otsu": (otsu_threshold, otsu_threshold_plain),
@@ -865,12 +865,15 @@ def main() -> int:
         "median_blur", "64-bit bins", median_blur_u8(tiny, 46341),
         median_blur_u8_plain(tiny, 46341, rows_per_step=1)))
     say("phase 3: median_blur [k 46341, 64-bit bins] 2x3x5 bit-exact vs plain")
-    # kernel J's global-scratch form: units whose 9 bytes a 2x2 block exceed
-    # a block's shared memory
-    big_j = torch.from_numpy(np.random.RandomState(1).rand(2, 401, 421) > 0.55).to(dev)
-    errs["label_stats"] = max(errs["label_stats"], compare(
-        "label_stats", "global scratch", largest_component_sums(big_j), largest_component(big_j)))
-    say("phase 3: label_stats [global scratch] 2x401x421 bit-exact vs plain")
+    # kernel J beyond the paths' units: 2x401x421 and 1x1024x1024 (bands in
+    # shared memory), and 1x8x131072, whose band slots (8 bytes a 2x2 block)
+    # exceed a block's shared memory: the global-scratch form
+    for (uj, hj, wj) in ((2, 401, 421), (1, 1024, 1024), (1, 8, 131072)):
+        big_j = torch.from_numpy(np.random.RandomState(1).rand(uj, hj, wj) > 0.55).to(dev)
+        errs["label_stats"] = max(errs["label_stats"], compare(
+            "label_stats", f"{uj}x{hj}x{wj}", kernel_fns["label_stats"][0](big_j),
+            largest_component(big_j)))
+        say(f"phase 3: label_stats [{uj}x{hj}x{wj}] bit-exact vs plain")
     snake = torch.from_numpy(serpentine_plane(125, 316)[None]).to(dev)
     tip = torch.zeros_like(snake).flatten()
     tip[snake.flatten().nonzero().max()] = 1  # seed only the path's far end
@@ -904,14 +907,17 @@ def main() -> int:
     # 46341, units never mixed), of the redesigned I and F (every head,
     # widths 1, 31-33, 63-65 and 4096, H = 1, morph_kernel 2/3/4/31,
     # erode_px 0/1/6/200; block-rank ties, the isolated-pixel grid, one
-    # component, an empty unit, a label outside the plane), and the sync
-    # checks, each against its plain version; the files' other tests repeat
-    # this script's own checks
+    # component, an empty unit, a label outside the plane), of the
+    # redesigned J and G (band seams, diagonal joins at a seam, a tie across
+    # bands, H = 1 and 2, widths 1 and 31-33, the global scratch; regions
+    # first in the last odd row or column, one over many chunks, a whole
+    # capture whose sums pass 2^31), and the sync checks, each against its
+    # plain version; the files' other tests repeat this script's own checks
     mark("phase 3: the cuda-marked tests start")
     tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
-             "tests/test_torch_median_hist.py"]
+             "tests/test_torch_median_hist.py", "tests/test_torch_cluster.py"]
     selected = ("otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist "
-                "or mask_chain or cc_stats_")
+                "or mask_chain or cc_stats_ or test_torch_cluster")
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
          "--noconftest", "-p", "no:cacheprovider"],

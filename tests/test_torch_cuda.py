@@ -302,8 +302,8 @@ def test_morph_chain_matches_plain(cuda, stages_name):
 
 @pytest.mark.parametrize("shape", [(4, 37, 53), (1, 315, 316), (3, 401, 421)])
 def test_largest_component_sums_matches_plain(cuda, shape):
-    """Kernel J: block grids in shared memory (up to 315x316) and in the
-    global scratch (401x421: 9 bytes a block exceed a block's 227 KB)."""
+    """Kernel J: one unit and batches of units, each unit on a cluster of
+    CTAs holding bands of its block rows in shared memory."""
     rng = np.random.RandomState(15)
     fg = _planes(rng, shape, 0.55, cuda) > 0
     if shape[0] > 1:

@@ -1,7 +1,8 @@
 """The kernel rig ``tpu_inspect_torch.tools.kernel_bench`` on the CPU, at
-its small size: every form of kernels B, D, E and H builds its planes through
-the port's engine, equals its plain version exactly and gets a time (a
-host wall here, labelled so; device times come from the card)."""
+its small size: every form of kernels B, D, E, F, G, H, I and J (and the
+launch floor) builds its planes through the port's engine, equals its
+plain version exactly and gets a time (a host wall here, labelled so;
+device times come from the card)."""
 
 import json
 
@@ -18,7 +19,9 @@ def test_kernel_bench_small_cpu(capsys):
         assert r["ms"] > 0 and r["plain_ms"] > 0 and r["bound_ms"] > 0
     out = capsys.readouterr().out.strip().splitlines()
     assert json.loads(out[-1]) == rows
-    assert {tuple(r["shape"]) for r in rows} == {(4, 64, 64), (1, 64, 64), (1, 96, 128)}
+    # the small planes' shapes, and the launch floor's one byte
+    assert {tuple(r["shape"]) for r in rows} == {(4, 64, 64), (1, 64, 64), (1, 96, 128),
+                                                 (1, 1, 1)}
 
 
 def test_kernel_bench_rejects_unknown_form():

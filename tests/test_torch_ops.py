@@ -502,3 +502,36 @@ def test_png_encoder_and_gray_decode_match_cv2(tmp_path):
     np.testing.assert_array_equal(
         tio.crops_for_grid(gray, grid, "cpu").numpy(),
         np.asarray(j_crops_for_grid(gray, jcfg.GridParams(**grid.__dict__))))
+
+
+@pytest.mark.parametrize("shape", ["rect", "rectangle", "circle"])
+def test_exclusion_from_drawn_rect_matches_reference(shape):
+    """``geometry.exclusion_from_drawn_rect`` equals the JAX package's on
+    seeded drawn rects: inside, across the unit's edges, outside it (None)
+    and degenerate (zero width)."""
+    from tpu_inspect.geometry import exclusion_from_drawn_rect as j_from_rect
+
+    from tpu_inspect_torch.geometry import exclusion_from_drawn_rect
+
+    rng = np.random.RandomState(len(shape))
+    base = (40, 30, 316, 315)
+    drawn = [tuple(int(v) for v in rng.randint(-50, 400, 4)) for _ in range(40)]
+    drawn += [(0, 0, 10, 10), (60, 50, 0, 20), (356, 345, 5, 5), (35, 25, 400, 400)]
+    outs = [exclusion_from_drawn_rect(d, base, shape) for d in drawn]
+    assert outs == [j_from_rect(d, base, shape) for d in drawn]
+    assert None in outs and any(o is not None for o in outs)
+
+
+def test_random_blob_mask_matches_reference():
+    """``synthetic.random_blob_mask`` renders the JAX package's pixels from
+    the same seed."""
+    from tpu_inspect.synthetic import random_blob_mask as j_blobs
+
+    from tpu_inspect_torch.synthetic import random_blob_mask
+
+    for seed, (h, w), n, scale in [(0, (48, 56), 5, 0.2), (3, (40, 44), 1, 0.4),
+                                   (7, (1, 9), 2, 0.2), (11, (64, 31), 6, 0.08)]:
+        got = random_blob_mask(h, w, seed=seed, n_blobs=n, scale=scale)
+        ref = j_blobs(h, w, seed=seed, n_blobs=n, scale=scale)
+        assert got.dtype == ref.dtype == np.uint8
+        np.testing.assert_array_equal(got, ref)

@@ -43,14 +43,6 @@ constexpr int kSmemMax = 232448;  // a Hopper block's dynamic shared memory
 // group (each row's column window once); ops/morphology.py: _ONE_PASS_ROWS
 constexpr int kOnePassRows = 3;
 
-// bytes 0x00 / 0xFF of v -> 4 bits (byte i's MSB to bit i)
-__device__ inline uint32_t msb4(uint32_t v) {
-  return ((((v >> 7) & 0x01010101u) * 0x00204081u) >> 21) & 0xFu;
-}
-
-// the low 4 bits of b -> bytes 0 / 1 (bit i to byte i)
-__device__ inline uint32_t bytes4(uint32_t b) { return ((b & 0xFu) * 0x00204081u) & 0x01010101u; }
-
 // n (<= 32) bytes at p as 8 little-endian words, zero past n; 16-byte
 // loads where the caller guarantees alignment and a full word
 __device__ inline void load32(const uint8_t* __restrict__ p, int n, bool vec, uint32_t (&v)[8]) {
@@ -77,13 +69,13 @@ __device__ inline uint32_t head_word(const uint8_t* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const uint32_t c = t < 0 ? __vcmpne4(v[j], 0u) : __vcmpleu4(v[j], t4);
-    bits |= msb4(c) << (4 * j);
+    bits |= tik::msb4(c) << (4 * j);
   }
   if (roi != nullptr) {
     load32(roi, n, vec, v);
     uint32_t r = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) r |= msb4(__vcmpne4(v[j], 0u)) << (4 * j);
+    for (int j = 0; j < 8; ++j) r |= tik::msb4(__vcmpne4(v[j], 0u)) << (4 * j);
     bits &= r;
   }
   return n == 32 ? bits : bits & ((1u << n) - 1u);
@@ -93,8 +85,10 @@ __device__ inline uint32_t head_word(const uint8_t* __restrict__ x,
 __device__ inline void store_word(uint8_t* __restrict__ p, uint32_t v, int n, bool vec) {
   if (vec && n == 32) {
     uint4 a, b;
-    a.x = bytes4(v), a.y = bytes4(v >> 4), a.z = bytes4(v >> 8), a.w = bytes4(v >> 12);
-    b.x = bytes4(v >> 16), b.y = bytes4(v >> 20), b.z = bytes4(v >> 24), b.w = bytes4(v >> 28);
+    a.x = tik::bytes4(v), a.y = tik::bytes4(v >> 4);
+    a.z = tik::bytes4(v >> 8), a.w = tik::bytes4(v >> 12);
+    b.x = tik::bytes4(v >> 16), b.y = tik::bytes4(v >> 20);
+    b.z = tik::bytes4(v >> 24), b.w = tik::bytes4(v >> 28);
     reinterpret_cast<uint4*>(p)[0] = a;
     reinterpret_cast<uint4*>(p)[1] = b;
     return;

@@ -1,6 +1,6 @@
 // Per-unit plane primitives of kernels A (seg_tail.cu), K (seg_roi_tail.cu)
-// and C (blob_filter.cu); kernel J (label_stats.cu) uses the 2x2 block
-// grid's byte codes and edges.
+// and C (blob_filter.cu), the morphology of kernel I (morph.cu), and the
+// byte <-> bit helpers of I, J (label_stats.cu) and G (blob_select.cu).
 //
 // Every function here is executed by ALL threads of one CTA, which owns one
 // unit: work is strided over the CTA's threads and phases are separated by
@@ -16,7 +16,7 @@
 // Connected components run on the 2x2 BLOCK grid: under 8-connectivity the
 // fg pixels of one 2x2 block are mutually adjacent, so pixel components are
 // exactly the components of the block graph whose edges follow from the
-// blocks' sub-cell patterns. The labeling is J's fixed-pass union-find
+// blocks' sub-cell patterns. The labeling is a fixed-pass union-find
 // (uf.cuh: each block row's east runs hung under their first block, then
 // the south and diagonal unions with path halving in shared memory, then
 // resolve), so a component's root is its minimum block-raster index, which
@@ -37,30 +37,27 @@ namespace tik {
 // 4 = (2by+1, 2bx), 8 = (2by+1, 2bx+1); out-of-plane sub-cells are 0.
 // ---------------------------------------------------------------------------
 
-// byte codes of a uint8 plane (kernel J)
-__device__ inline void block_codes(const uint8_t* __restrict__ m,
-                                   uint8_t* code, int H, int W, int wb,
-                                   int nb) {
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    const int by = b / wb;
-    const int bx = b - by * wb;
-    const int y = 2 * by;
-    const int x = 2 * bx;
-    int c = 0;
-    if (m[y * W + x]) c |= 1;
-    if (x + 1 < W && m[y * W + x + 1]) c |= 2;
-    if (y + 1 < H && m[(y + 1) * W + x]) c |= 4;
-    if (y + 1 < H && x + 1 < W && m[(y + 1) * W + x + 1]) c |= 8;
-    code[b] = static_cast<uint8_t>(c);
-  }
-}
-
 // edges of the block graph: a -> its east / south / south-east / south-west
 // neighbour n (pixel pairs across the shared side or corner are adjacent)
 __device__ inline bool conn_e(int a, int n) { return (a & 0xA) && (n & 0x5); }
 __device__ inline bool conn_s(int a, int n) { return (a & 0xC) && (n & 0x3); }
 __device__ inline bool conn_se(int a, int n) { return (a & 8) && (n & 1); }
 __device__ inline bool conn_sw(int a, int n) { return (a & 4) && (n & 2); }
+
+// ---------------------------------------------------------------------------
+// Bytes <-> bits (kernels I, J and G pack uint8 planes with these)
+// ---------------------------------------------------------------------------
+
+// bytes 0x00 / 0xFF of v -> 4 bits (byte i's MSB to bit i)
+__device__ inline uint32_t msb4(uint32_t v) {
+  return ((((v >> 7) & 0x01010101u) * 0x00204081u) >> 21) & 0xFu;
+}
+
+// the nonzero bytes of v -> 4 bits
+__device__ inline uint32_t nz4(uint32_t v) { return msb4(__vcmpne4(v, 0u)); }
+
+// the low 4 bits of b -> bytes 0 / 1 (bit i to byte i)
+__device__ inline uint32_t bytes4(uint32_t b) { return ((b & 0xFu) * 0x00204081u) & 0x01010101u; }
 
 // ---------------------------------------------------------------------------
 // Bit-plane geometry and access

@@ -92,38 +92,40 @@ __device__ inline void store_parent(int* parent, int x, int v) {
   }
 }
 
-// The root of x, halving the path on the way.
-template <bool kShared = false>
-__device__ inline int find_root(int* parent, int x, int n, int* err) {
-  int p = load_parent<kShared>(parent, x);
+// The root of x, halving the path on the way. at(i) is the address of node
+// i's parent slot (a kernel whose slots are not one array passes its own:
+// label_stats.cu's lie in the shared memory of several CTAs).
+template <bool kShared, class At>
+__device__ inline int find_root_at(At at, int x, int n, int* err) {
+  int p = load_parent<kShared>(at(x), 0);
   for (int steps = 0; p != x; ++steps) {
     if (steps > n) {
       atomicExch(err, 1);
       break;
     }
-    const int gp = load_parent<kShared>(parent, p);
+    const int gp = load_parent<kShared>(at(p), 0);
     if (gp != p) {
-      store_parent<kShared>(parent, x, gp);
+      store_parent<kShared>(at(x), 0, gp);
       p = gp;
     }
     x = p;
-    p = load_parent<kShared>(parent, x);
+    p = load_parent<kShared>(at(x), 0);
   }
   return x;
 }
 
-template <bool kShared = false>
-__device__ inline void unite(int* parent, int a, int b, int n, int* err) {
+template <bool kShared, class At>
+__device__ inline void unite_at(At at, int a, int b, int n, int* err) {
   for (int iter = 0; iter <= n; ++iter) {
-    a = find_root<kShared>(parent, a, n, err);
-    b = find_root<kShared>(parent, b, n, err);
+    a = find_root_at<kShared>(at, a, n, err);
+    b = find_root_at<kShared>(at, b, n, err);
     if (a == b) return;
     if (a > b) {
       const int t = a;
       a = b;
       b = t;
     }
-    const int old = atomicMin(parent + b, a);
+    const int old = atomicMin(at(b), a);
     if (old == b) return;  // b was still a root: now hung under a
     // b had been linked to `old` meanwhile: join a with that tree too
     b = old;
@@ -131,22 +133,37 @@ __device__ inline void unite(int* parent, int a, int b, int n, int* err) {
   atomicExch(err, 2);
 }
 
+template <bool kShared = false>
+__device__ inline int find_root(int* parent, int x, int n, int* err) {
+  return find_root_at<kShared>([parent](int i) { return parent + i; }, x, n, err);
+}
+
+template <bool kShared = false>
+__device__ inline void unite(int* parent, int a, int b, int n, int* err) {
+  unite_at<kShared>([parent](int i) { return parent + i; }, a, b, n, err);
+}
+
 }  // namespace uf
 
-// The root of x by a walk that stores nothing (par's roots must be final);
-// past its bound it sets *err
-template <bool kShared>
-__device__ inline int root_walk(const int* par, int x, int n, int* err) {
-  int p = uf::load_parent<kShared>(par, x);
+// The root of x by a walk that stores nothing (the roots must be final);
+// past its bound it sets *err. at as for uf::find_root_at.
+template <bool kShared, class At>
+__device__ inline int root_walk_at(At at, int x, int n, int* err) {
+  int p = uf::load_parent<kShared>(at(x), 0);
   for (int steps = 0; p != x; ++steps) {
     if (steps > n) {
       atomicExch(err, 1);
       break;
     }
     x = p;
-    p = uf::load_parent<kShared>(par, x);
+    p = uf::load_parent<kShared>(at(x), 0);
   }
   return x;
+}
+
+template <bool kShared>
+__device__ inline int root_walk(const int* par, int x, int n, int* err) {
+  return root_walk_at<kShared>([par](int i) { return par + i; }, x, n, err);
 }
 
 namespace runs {

@@ -1,8 +1,9 @@
 """Grid-indexing and exclusion geometry (pure host-side integer math).
 
 Copy of :mod:`tpu_inspect.geometry`'s ``BoxGrid``, ``grid_boxes``,
-``grid_origins``, ``infer_grid_params``, ``clamp_exclusion_to_base_unit``
-and ``exclusion_mask`` (indexing_ui.py:2171-2201, :1887-1946, :2316-2338);
+``grid_origins``, ``infer_grid_params``, ``exclusion_from_drawn_rect``,
+``clamp_exclusion_to_base_unit`` and ``exclusion_mask`` (indexing_ui.py:
+2171-2201, :1796-1816, :1887-1946, :2316-2338);
 the engine consumes the origins as a small int tensor, the oracle copy
 (:mod:`tpu_inspect_torch.oracle`) the exclusion mask.
 """
@@ -116,6 +117,35 @@ def infer_grid_params(
         if grid_boxes(params) == [tuple(int(v) for v in b) for b in boxes]:
             return params
     return BoxGrid(tuple(tuple(int(v) for v in b) for b in boxes))
+
+
+def exclusion_from_drawn_rect(
+    drawn: tuple[int, int, int, int],
+    base_unit: tuple[int, int, int, int],
+    shape: str = "rect",
+) -> dict | None:
+    """Convert an image-space drawn rect into a unit-local exclusion.
+
+    Mirrors on_exclusion_drawn (indexing_ui.py:1796-1816): intersect with the
+    base unit; rect exclusions keep the intersection; circles take the
+    bounding-rect center and ``r = min(w, h) // 2``. Returns None when the
+    drawn rect lies outside the unit.
+    """
+    dx, dy, dw, dh = drawn
+    bx, by, bw, bh = base_unit
+    x = max(bx, dx)
+    y = max(by, dy)
+    x2 = min(bx + bw, dx + dw)
+    y2 = min(by + bh, dy + dh)
+    if x2 <= x or y2 <= y:
+        return None
+    rel_x, rel_y, rel_w, rel_h = x - bx, y - by, x2 - x, y2 - y
+    if shape == "rect" or shape == "rectangle":
+        return {"shape": "rect", "x": rel_x, "y": rel_y, "w": rel_w, "h": rel_h}
+    cx = rel_x + rel_w / 2.0
+    cy = rel_y + rel_h / 2.0
+    r = int(min(rel_w, rel_h) / 2.0)
+    return {"shape": "circle", "cx": int(cx), "cy": int(cy), "r": r}
 
 
 def clamp_exclusion_to_base_unit(excl: dict, bw: int, bh: int) -> dict:

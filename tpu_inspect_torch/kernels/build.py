@@ -53,16 +53,26 @@ _SIGNATURES = {
     "tik_label": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # labels, fg, mask, stats, scratch, err, U, H, W, stream
     "tik_component_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # fill_labels, top, ext, max_x2, table, out, area, sums, err, U, H, W,
-    # min_x2, stream
-    "tik_blob_select": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # fill_labels, top, ext, max_x2, out, area, sums, err, U, H, W, min_x2,
+    # stream
+    "tik_blob_select": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the contour table (host memory), once per device
+    "tik_blob_select_setup": (_P,),
     # x, out, U, H, W, k, strip rows, stream
     "tik_median_blur": (_P, _P, _I, _I, _I, _I, _I, _P),
     # x, thr, roi, out, prog, U, H, W, tile rows, tile words, row reach,
     # column reach, big, stream
     "tik_morph_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # fg, mask, stats, scratch, err, U, H, W, stream
-    "tik_label_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # fg, mask, stats, scratch, err, U, H, W, CTAs a unit at most, opt-in
+    # shared memory, stream
+    "tik_label_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # out: [opt-in shared memory, largest cluster] (int32), once per device
+    "tik_label_stats_setup": (_P,),
+    # U, H, W, CTAs a unit at most, opt-in shared memory, out: scratch
+    # int32 words (int64)
+    "tik_label_stats_scratch": (_I, _I, _I, _I, _I, _P),
+    # out (one byte), stream: a one-thread launch (the kernel rig's floor)
+    "tik_launch_floor": (_P, _P),
     # x, thr, prog, roi_prog, zone, seg_out, seg_stats, roi_out, roi_stats,
     # scratch, scratch words, err, U, H, W, stream
     "tik_seg_roi_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _P),
@@ -184,7 +194,12 @@ def check_bounded(name: str, err_flag) -> None:
     """Raise if a kernel set its device error flag (a loop that hit its
     bound, or a label outside its plane: the result would be wrong, so it is
     never returned). Reading the flag waits for the kernel."""
-    code = int(err_flag.item())
+    check_flag(name, int(err_flag.item()))
+
+
+def check_flag(name: str, code: int) -> None:
+    """:func:`check_bounded` on a flag value already read (with other
+    results, in one copy)."""
     if code != 0:
         raise RuntimeError(
             f"{name}: kernel set its error flag {code} (1, 2: an iteration bound; "

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from tpu_inspect_torch.kernels import (
@@ -35,8 +36,17 @@ from tpu_inspect_torch.ops.contour import contour_sums_x2
 @functools.lru_cache(maxsize=8)
 def contour_table(device: str) -> torch.Tensor:
     """``CONTOUR_TABLE_X2`` as a contiguous [81, 3] int32 tensor on
-    ``device`` (kept per device: the kernels read it on every call)."""
+    ``device`` (kept per device: kernel C reads it on every call)."""
     return torch.as_tensor(CONTOUR_TABLE_X2, dtype=torch.int32).to(device).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(index: int) -> None:
+    """``CONTOUR_TABLE_X2`` into kernel G's constant memory on device
+    ``index``, once."""
+    table = np.ascontiguousarray(CONTOUR_TABLE_X2, dtype=np.int32)
+    with torch.cuda.device(index):
+        build.check("blob_select", build.lib().tik_blob_select_setup(table.ctypes.data))
 
 
 def blob_select_plain(fill_labels, top, ext, max_x2, *, min_x2: int):
@@ -75,16 +85,17 @@ def blob_select(fill_labels, top, ext, max_x2, *, min_x2: int, err=None):
     if u * (h + 1) * (w + 1) >= 2**31:
         raise ValueError(f"blob_select: {u}x{h}x{w} too large for int32 indices")
     dev = top.device
+    _setup(dev.index)
     out = torch.empty((u, h, w), dtype=torch.uint8, device=dev)
     area = torch.empty((u,), dtype=torch.int32, device=dev)
-    sums = torch.empty((u * h * w,), dtype=torch.int64, device=dev)
+    # one region-sum slot per 2x2 block (the block of the region's label
+    # pixel: no block holds two regions' first pixels), zeroed by the launcher
+    sums = torch.empty((u * ((h + 1) // 2) * ((w + 1) // 2),), dtype=torch.int64, device=dev)
     flag = error_flag(dev) if err is None else err
-    table = contour_table(str(dev))
     code = build.lib().tik_blob_select(
         fill_labels.data_ptr(), top.data_ptr(), ext.data_ptr(), max_x2.data_ptr(),
-        table.data_ptr(), out.data_ptr(), area.data_ptr(), sums.data_ptr(),
-        flag.data_ptr(), u, h, w, int(min_x2),
-        torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), area.data_ptr(), sums.data_ptr(), flag.data_ptr(), u, h, w,
+        int(min_x2), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("blob_select", code)
     LAUNCHES["blob_select"] += 1

@@ -22,6 +22,9 @@ run's value into a later run.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build, check_labels, error_flag
@@ -217,13 +220,32 @@ def component_stats(labels: torch.Tensor, fg: torch.Tensor, err=None):
     return mask.view(torch.bool), stats
 
 
-# Kernel J runs one CTA per unit: a unit above this many pixels (a whole
-# capture) takes kernels E then F instead. The same size as the engine's
-# whole-image gate (``engine.WHOLE_MIN_PX``).
+# Kernel J runs one unit on a thread-block cluster: a unit above this many
+# pixels (a whole capture) takes kernels E then F instead. The same size as
+# the engine's whole-image gate (``engine.WHOLE_MIN_PX``).
 LABEL_STATS_MAX_PX = 1 << 20
 
 
-def largest_component_sums(fg: torch.Tensor):
+@functools.lru_cache(maxsize=None)
+def _label_stats_device(index: int) -> tuple[int, int, int]:
+    """Kernel J's launch attributes set on device ``index``, once; returns
+    (the opt-in shared memory a block may use there, the largest cluster
+    its launches may take, the SM count)."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        code = build.lib().tik_label_stats_setup(ctypes.addressof(out))
+    build.check("largest_component_sums", code)
+    return out[0], out[1], torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def label_stats_cluster(u: int, max_cluster: int, sms: int) -> int:
+    """The CTAs a unit takes at most: the card's SMs shared by the ``u``
+    units, 1 to ``max_cluster`` (one unit, the erosion preview, takes the
+    most)."""
+    return max(1, min(max_cluster, sms // max(1, u)))
+
+
+def largest_component_sums(fg: torch.Tensor, err=None):
     """Largest 8-connected component per unit from the plane itself; kernel
     J (the port of :func:`tpu_inspect.ops.cc.largest_component_sums` on its
     TPU branch, ``cc_pallas.py: largest_component_stats_pallas``).
@@ -234,7 +256,8 @@ def largest_component_sums(fg: torch.Tensor):
     col_hi)), OpenCV's block-raster tie-break included, with no label plane
     in between. Launches ``csrc/label_stats.cu`` for CUDA tensors and runs
     :func:`largest_component` for CPU tensors; a unit above
-    ``LABEL_STATS_MAX_PX`` pixels raises ValueError."""
+    ``LABEL_STATS_MAX_PX`` pixels raises ValueError. ``err`` as for
+    :func:`tpu_inspect_torch.ops.flood.propagate`."""
     fg = as_planes(fg, "largest_component_sums")
     u, h, w = fg.shape
     if h * w > LABEL_STATS_MAX_PX:
@@ -245,18 +268,24 @@ def largest_component_sums(fg: torch.Tensor):
     if fg.device.type == "cpu":
         return largest_component(fg != 0)
     dev = fg.device
+    optin, max_cluster, sms = _label_stats_device(dev.index)
+    cmax = label_stats_cluster(u, max_cluster, sms)
+    lib = build.lib()
     mask = torch.empty((u, h, w), dtype=torch.uint8, device=dev)
     stats = torch.empty((u, 8), dtype=torch.int64, device=dev)
-    # parents, areas and codes of the 2x2 blocks, for units too large for
-    # the kernel's shared memory
-    scratch = torch.empty((3 * u * ((h + 1) // 2) * ((w + 1) // 2),), dtype=torch.int32,
-                          device=dev)
-    err = torch.zeros((1,), dtype=torch.int32, device=dev)
-    code = build.lib().tik_label_stats(
-        fg.data_ptr(), mask.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
-        err.data_ptr(), u, h, w, torch.cuda.current_stream(dev).cuda_stream,
+    # the bands' parents, areas and bits, for units whose bands do not fit
+    # a block's shared memory (none for the others)
+    words = ctypes.c_longlong(0)
+    build.check("largest_component_sums",
+                lib.tik_label_stats_scratch(u, h, w, cmax, optin, ctypes.addressof(words)))
+    scratch = torch.empty((words.value,), dtype=torch.int32, device=dev)
+    flag = error_flag(dev) if err is None else err
+    code = lib.tik_label_stats(
+        fg.data_ptr(), mask.data_ptr(), stats.data_ptr(), scratch.data_ptr(), flag.data_ptr(),
+        u, h, w, cmax, optin, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("largest_component_sums", code)
     LAUNCHES["label_stats"] += 1
-    build.check_bounded("largest_component_sums", err)
+    if err is None:
+        build.check_bounded("largest_component_sums", flag)
     return mask.view(torch.bool), stats

@@ -32,6 +32,7 @@ import torch
 from tpu_inspect_torch.config import GridParams
 from tpu_inspect_torch.device import resolve_device
 from tpu_inspect_torch.geometry import grid_boxes
+from tpu_inspect_torch.kernels import build, error_flag
 from tpu_inspect_torch.ops.cc import largest_component_sums
 from tpu_inspect_torch.ops.morphology import morph_chain, rect_erode_stages
 
@@ -224,12 +225,16 @@ def erosion_outline_mask(
     [h, w] outline mask, or None when the eroded mask is empty.
 
     On ``device``: the (2n+1)^2 erode (kernel I), the largest component
-    (kernel J), the 1-px inner erode (kernel I again)."""
+    (kernel J), the 1-px inner erode (kernel I again). J's bound flag is
+    read with its has_fg in one copy."""
     dev = resolve_device(device)
     m = torch.from_numpy(np.asarray(seg_mask) > 0)[None].to(dev)
     m = morph_chain(m, rect_erode_stages(int(erode_px)))
-    largest, stats = largest_component_sums(m)
-    if not int(stats[0, 3]):
+    flag = error_flag(dev)
+    largest, stats = largest_component_sums(m, err=flag)
+    has, code = torch.stack((stats[0, 3], flag[0].to(torch.int64))).tolist()
+    build.check_flag("erosion_outline_mask", code)
+    if not has:
         return None
     inner = morph_chain(largest, rect_erode_stages(1))
     return (largest[0] & ~inner[0]).cpu().numpy()

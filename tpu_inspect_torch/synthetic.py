@@ -95,6 +95,25 @@ def crop_units(image: np.ndarray, grid: GridParams) -> np.ndarray:
     return np.stack(crops)
 
 
+def random_blob_mask(
+    h: int, w: int, *, seed: int = 0, n_blobs: int = 4, scale: float = 0.2
+) -> np.ndarray:
+    """Random smooth binary mask (for per-op parity tests)."""
+    rng = np.random.RandomState(seed)
+    out = np.zeros((h, w), dtype=np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for _ in range(n_blobs):
+        cy, cx = rng.randint(0, h), rng.randint(0, w)
+        ry = max(2, int(rng.uniform(0.3, 1.0) * h * scale))
+        rx = max(2, int(rng.uniform(0.3, 1.0) * w * scale))
+        ang = rng.uniform(0, np.pi)
+        dx, dy = xx - cx, yy - cy
+        u = dx * np.cos(ang) + dy * np.sin(ang)
+        v = -dx * np.sin(ang) + dy * np.cos(ang)
+        out[(u / rx) ** 2 + (v / ry) ** 2 <= 1.0] = 255
+    return out
+
+
 def serpentine_plane(h: int, w: int) -> np.ndarray:
     """A [H, W] uint8 0/1 plane holding one long 1-px path (port-only
     fixture for the flood and labeling kernels).

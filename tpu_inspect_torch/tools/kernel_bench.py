@@ -1,6 +1,6 @@
-"""Time one form of kernel B, D, E, F, H or I at a time, checked exact against
-its plain version: the rig to iterate on a kernel without a whole chip_smoke
-run.
+"""Time one form of kernel B, D, E, F, G, H, I or J at a time, checked exact
+against its plain version: the rig to iterate on a kernel without a whole
+chip_smoke run.
 
 The port of ``tools/kernel_bench.py`` (which times the JAX package's Pallas
 kernels one by one). Its planes are ``chip_smoke.py``'s: the standard
@@ -27,12 +27,17 @@ default is ``tpu_inspect_torch.ops.median.strip_rows``).
 To time an older tree's kernels on the same forms, run this file from the
 older tree's root with ``PYTHONPATH=.``: kernel I's forms then drive that
 tree's byte-plane chain (one launch a stage) with the head and the ``> 0``
-as torch ops, as its callers ran them.
+as torch ops, as its callers ran them, and J's wrapper without a flag
+argument reads its own flag each call.
+
+The ``launch floor`` form is a one-thread kernel storing one byte: the
+time no one-unit launch (kernel J's preview unit) can beat.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import sys
@@ -54,7 +59,7 @@ def _roi_rows_bytes(x, k: int, lo, hi) -> int:
 
 
 def planes(dev: torch.device, small: bool = False) -> dict:
-    """The named inputs of B's, D's, E's and H's forms on ``dev``, made as
+    """The named inputs of every kernel's forms on ``dev``, made as
     the main paths make them (otsu/threshold, the standard workload's
     exclusions; Canny at the default threshold). An int entry is a byte
     count standing in for the bytes a form reads of a plane."""
@@ -63,7 +68,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     from tpu_inspect_torch.geometry import grid_origins
     from tpu_inspect_torch.imageio import gather_crops
     from tpu_inspect_torch.ops.blob import candidate_mask
-    from tpu_inspect_torch.ops.canny import canny_planes
+    from tpu_inspect_torch.ops.canny import canny_planes, canny_u8
     from tpu_inspect_torch.ops.fused import tail_mask
     from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
     from tpu_inspect_torch.ops.hole_fill import exterior_background
@@ -106,7 +111,18 @@ def planes(dev: torch.device, small: bool = False) -> dict:
                                   roi_st_w[:, 4].to(torch.int32).contiguous(),
                                   roi_st_w[:, 5].to(torch.int32).contiguous())
     m_w = candidate_mask(cand_w, roi_w, True)
-    fill_w, _, ext_w = engine._fill_regions(m_w)
+    fill_w, top_w, ext_w = engine._fill_regions(m_w)
+    # kernel G's inputs: the defect tail's fill regions, threshold and Canny
+    # forms, and the ROI's max area (engine._defect)
+    max_x2_w = (2 * torch.clamp(torch.floor(roi_st_w[:, 0].to(torch.float64) * dp.max_area_frac),
+                                min=dp.min_area).to(torch.int32)).contiguous()
+    m_cw = candidate_mask(canny_u8(whole, lo, hi), roi_w, False)
+    fill_cw, top_cw, ext_cw = engine._fill_regions(m_cw)
+    # kernel J's: the erosion preview's unit (its seg mask eroded) and the
+    # 48 eroded seg masks with an empty and a full unit in place of the
+    # first two
+    j_plane = tail_mask(seg_masks, rect_erode_stages(dp.erode_px))
+    j_plane[0], j_plane[1] = False, True
     lin = torch.arange(m_w[0].numel(), dtype=torch.int32, device=dev).reshape(m_w.shape)
     rows = {"lo": roi_st[:, 4].to(torch.int32).contiguous(),
             "hi": roi_st[:, 5].to(torch.int32).contiguous(),
@@ -140,10 +156,15 @@ def planes(dev: torch.device, small: bool = False) -> dict:
         "roi_pre_w": roi_pre_w,
         "free_mw": m_w.logical_not().contiguous(), "m_w": m_w.contiguous(),
         "seed_w": (m_w & (fill_w == lin)).contiguous(), "fill_plane_w": ext_w.logical_not().contiguous(),
+        "fill_w": fill_w, "top_w": top_w, "ext_w": ext_w, "max_x2_w": max_x2_w,
+        "fill_cw": fill_cw, "top_cw": top_cw, "ext_cw": ext_cw,
+        "j_plane": j_plane.contiguous(),
+        "j_one": tail_mask(seg1, rect_erode_stages(dp.erode_px)).contiguous(),
     }
 
 
 THR = 24  # DefectParams().threshold
+MIN_X2 = 40  # 2 * DefectParams().min_area
 
 
 def _stages(name: str):
@@ -158,7 +179,7 @@ def _stages(name: str):
 # k it takes; one unit as the interactive calls take it), then D's four
 # paths (the 48 units' Canny hysteresis and the whole-image route's three),
 # E's, H's (median_k = 47, the engine's smallest k on H, and 101; one
-# unit; 47 on the whole plane), I's and F's
+# unit; 47 on the whole plane), I's, F's, G's and J's, and the launch floor
 FORMS = {
     "B 48u k21 roi rows": ("median_residual", ("roi_rows21", "lo", "hi"),
                            lambda f, p, s: f(p["crops"], 21, THR, p["lo"], p["hi"], strip=s)),
@@ -216,6 +237,18 @@ FORMS = {
                     lambda f, p, s: f(p["roi_lab_w"], p["roi_pre_w"])),
     "F whole isolated px grid": ("cc_stats", ("iso_lab_w", "iso_w"),
                                  lambda f, p, s: f(p["iso_lab_w"], p["iso_w"])),
+    # G: the whole route's defect tail, threshold and Canny forms
+    "G whole defect tail": ("blob_select", ("fill_w", "top_w", "ext_w", "max_x2_w"),
+                            lambda f, p, s: f(p["fill_w"], p["top_w"], p["ext_w"], p["max_x2_w"],
+                                              min_x2=MIN_X2)),
+    "G whole defect tail, Canny": ("blob_select", ("fill_cw", "top_cw", "ext_cw", "max_x2_w"),
+                                   lambda f, p, s: f(p["fill_cw"], p["top_cw"], p["ext_cw"],
+                                                     p["max_x2_w"], min_x2=MIN_X2)),
+    # J: the erosion preview's unit and the 48 eroded units; the floor of a
+    # one-unit launch
+    "J preview unit": ("label_stats", ("j_one",), lambda f, p, s: f(p["j_one"])),
+    "J 48u eroded, empty + full": ("label_stats", ("j_plane",), lambda f, p, s: f(p["j_plane"])),
+    "launch floor": ("launch_floor", (), lambda f, p, s: f(p["whole"].device)),
 }
 # the kernels whose forms take a strip length
 STRIPPED = ("median_residual", "median_blur")
@@ -223,7 +256,8 @@ STRIPPED = ("median_residual", "median_blur")
 
 def kernels() -> dict:
     """kernel name -> (wrapper, plain version, whether it takes a bound flag);
-    B's and H's wrappers are the ones that take a strip length."""
+    B's and H's wrappers are the ones that take a strip length; the launch
+    floor is the rig's own."""
     from tpu_inspect_torch.ops.cc import label_components, label_components_plain
     from tpu_inspect_torch.ops.flood import propagate, propagate_plain
     from tpu_inspect_torch.ops.median import (
@@ -234,7 +268,13 @@ def kernels() -> dict:
     )
 
     from tpu_inspect_torch.ops import morphology
-    from tpu_inspect_torch.ops.cc import component_stats, component_stats_plain
+    from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
+    from tpu_inspect_torch.ops.cc import (
+        component_stats,
+        component_stats_plain,
+        largest_component,
+        largest_component_sums,
+    )
 
     def stripless(plain):  # the plain versions walk no strips
         return lambda *a, strip=None, **kw: plain(*a, **kw)
@@ -248,7 +288,29 @@ def kernels() -> dict:
             "median_residual": (_median_residual, stripless(median_residual_mask_plain), False),
             "median_blur": (_median_blur, stripless(median_blur_u8_plain), False),
             "morph": (chain, chain_plain, False),
-            "cc_stats": (component_stats, component_stats_plain, True)}
+            "cc_stats": (component_stats, component_stats_plain, True),
+            "blob_select": (blob_select, blob_select_plain, True),
+            # an older tree's J takes no flag: it reads its own each call
+            "label_stats": (largest_component_sums, largest_component,
+                            "err" in inspect.signature(largest_component_sums).parameters),
+            "launch_floor": (_launch_floor, _launch_floor_plain, False)}
+
+
+def _launch_floor(dev: torch.device) -> torch.Tensor:
+    """The rig's floor: one launch of a one-thread kernel storing one zero
+    byte (``tik_launch_floor``); on the CPU its plain version."""
+    if dev.type != "cuda":
+        return _launch_floor_plain(dev)
+    from tpu_inspect_torch.kernels import build
+
+    out = torch.empty((1, 1, 1), dtype=torch.uint8, device=dev)
+    build.check("launch_floor", build.lib().tik_launch_floor(
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    return out
+
+
+def _launch_floor_plain(dev: torch.device) -> torch.Tensor:
+    return torch.zeros((1, 1, 1), dtype=torch.uint8, device=dev)
 
 
 def _byte_chain(chain):
