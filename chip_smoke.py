@@ -79,7 +79,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``engine._inspect_image_device``: the reference capture, otsu/threshold,
    the exclusions) dispatched under ``torch.cuda.set_sync_debug_mode("error")``:
    nothing in it waits for the card; and the same for the whole-image
-   route's seg and defect passes on one resident 1x3000x4096 unit;
+   route's seg and defect passes on one resident 1x3000x4096 unit; then
+   the sharded paths (``tpu_inspect_torch.parallel``,
+   ``streaming.stream_inspect_sharded``) through
+   ``parallel.launch.run_spmd``, once under NCCL at world size = the GPU
+   count and once on 4 gloo ranks sharing the card:
+   ``inspect_units_sharded`` on the 48 units (the reference capture, then
+   the (7, -4) capture aligned to its anchors), ``inspect_image_batch_
+   sharded`` (2 frames on a 2x2 mesh), ``stream_inspect_sharded`` over
+   the six frames (an even world), and ``segment_image_sharded`` and
+   ``defect_image_sharded`` on the 4096x3000 reference image at every rank
+   (at 4 and, on a sub-group, at 2 strips; Canny once), every call on every
+   rank bit-exact field by field (:func:`digest`) against the single-GPU
+   engine on the card and every rank's launches checked; the walls of each
+   call (the slowest rank) are printed: ranks sharing one card measure the
+   split's and the collectives' overhead, not scaling;
 5. times on the card: each kernel vs its plain version (CUDA events, median
    of repeated runs at the paths' shapes, the whole planes included; the
    kernels with a bound flag share one, read after the timings) beside
@@ -370,6 +384,197 @@ def profile_combo(label: str, run, card: str, per: int = 1, unit: str = "image",
     for key, ms, count in prof.rows[:12]:
         say(f"phase 5:   {ms / per:9.4f} ms  x{count / per:g}  {key[:90]}")
     return prof
+
+
+# ---- the sharded paths (tpu_inspect_torch.parallel, streaming) ---------------
+# ranks sharing the one card under gloo (NCCL takes one rank a GPU)
+SHARDED_GLOO_RANKS = 4
+# the kernels each sharded call must launch on every rank
+SHARDED_KERNELS = {
+    "units": ("otsu", "seg_tail", "median_residual", "blob_filter"),
+    "segment": ("otsu", "morph", "propagate"),
+    "defect threshold": ("morph", "median_residual", "label", "cc_stats", "propagate",
+                         "blob_select"),
+    "defect canny": ("morph", "label", "cc_stats", "propagate", "blob_select"),
+}
+
+
+def digest(obj, prefix: str = "") -> dict:
+    """Field by field, a result's fingerprint: each array's dtype, shape and
+    sha256, each scalar's type and value (dataclasses, tuples and lists
+    walked). Two results are bit-exact where their digests are equal."""
+    import hashlib
+
+    import numpy as np
+
+    if dataclasses.is_dataclass(obj):
+        items = [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
+    elif isinstance(obj, (list, tuple)):
+        items = list(enumerate(obj))
+    elif isinstance(obj, np.ndarray):
+        a = np.ascontiguousarray(obj)
+        return {prefix: f"{a.dtype}{a.shape}:{hashlib.sha256(a.tobytes()).hexdigest()[:20]}"}
+    else:
+        return {prefix: f"{type(obj).__name__}:{obj!r}"}
+    out = {}
+    for k, v in items:
+        out.update(digest(v, f"{prefix}{k}."))
+    return out
+
+
+def sharded_ranks(spec: dict) -> dict:
+    """One rank's program of the sharded phase: every sharded entry point on
+    the inputs ``spec`` names (arrays in ``spec["dir"]``), each call made
+    once to warm up, then timed from a barrier to its host results, with
+    this rank's launch counts in the timed call. Returns {call: {"digest",
+    "wall_ms", "launches"}}."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_inspect_torch.kernels import LAUNCHES, reset_launches
+    from tpu_inspect_torch.parallel import (
+        defect_image_sharded,
+        inspect_image_batch_sharded,
+        inspect_units_sharded,
+        segment_image_sharded,
+        strip_mesh,
+    )
+    from tpu_inspect_torch.streaming import stream_inspect_sharded
+
+    arr = {n: np.load(Path(spec["dir"]) / f"{n}.npy", mmap_mode="r")
+           for n in ("crops", "crops_shifted", "frames", "seg_mask")}
+    world, rank = dist.get_world_size(), dist.get_rank()
+    seg, dp, dp_canny, excl = spec["seg"], spec["dp"], spec["dp_canny"], spec["excl"]
+    image = arr["frames"][0]
+    out = {}
+
+    def run(name, fn, group=None):
+        fn()
+        dist.barrier(group=group)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        wall = (time.perf_counter() - t0) * 1e3
+        out[name] = {"digest": digest(res), "wall_ms": wall, "launches": dict(LAUNCHES)}
+
+    units = dict(seg=seg, defect=dp, exclusions=excl)
+    run("units reference", lambda: inspect_units_sharded(arr["crops"], is_reference=True, **units))
+    run("units aligned", lambda: inspect_units_sharded(
+        arr["crops_shifted"], ref_centroids=spec["unit_anchors"], is_reference=False, **units))
+    n_img = 2 if world % 2 == 0 else 1
+    run(f"image batch {n_img}", lambda: inspect_image_batch_sharded(
+        arr["frames"][:n_img], spec["grid"], seg, dp, excl, ref_centroids=spec["stream_anchors"]))
+    if world % 2 == 0:
+        run("stream", lambda: list(stream_inspect_sharded(
+            arr["frames"], spec["grid"], seg, dp, excl, ref_centroids=spec["stream_anchors"],
+            fetch_masks=True)))
+    meshes = [(world, None)]
+    if world >= 4:
+        # a 2-strip mesh over ranks 0 and 1 (every rank makes the group)
+        meshes.append((2, dist.new_group([0, 1])))
+    for n, group in meshes:
+        if rank >= n:
+            continue
+        run(f"segment {n} strips", lambda: segment_image_sharded(
+            image, seg, mesh=strip_mesh(group)), group)
+        run(f"defect threshold {n} strips", lambda: defect_image_sharded(
+            image, arr["seg_mask"], dp, mesh=strip_mesh(group)), group)
+        if group is None:
+            run(f"defect canny {n} strips", lambda: defect_image_sharded(
+                image, arr["seg_mask"], dp_canny, mesh=strip_mesh()))
+    torch.cuda.synchronize()
+    return out
+
+
+def sharded_phase(work, frames, frame_refs, stream_anchors, seg, dparams, card):
+    """The sharded paths on the card: :func:`sharded_ranks` under NCCL at
+    world size = the GPU count, then under gloo on ``SHARDED_GLOO_RANKS``
+    ranks sharing the card; every call on every rank held by
+    :func:`digest` against the single-GPU engine on the card
+    (``inspect_units``; ``inspect_image`` for the batch and the stream, from
+    phase 4's ``frame_refs``; ``segment_units`` and ``detect_defects_batch``
+    on one 4096x3000 unit for the strips), and every rank's launches
+    checked. Returns (launches by path, walls by run)."""
+    import numpy as np
+    import torch
+
+    from tpu_inspect_torch import engine
+    from tpu_inspect_torch.config import DefectParams
+    from tpu_inspect_torch.imageio import crops_for_grid
+    from tpu_inspect_torch.parallel.launch import run_spmd
+    from tpu_inspect_torch.streaming import StreamResult
+
+    grid, excl = work["grid"], work["exclusions"]
+    dp_canny = DefectParams(method="canny").validated()
+    crops = crops_for_grid(frames[0], grid, device="cuda").cpu().numpy()
+    crops_shifted = crops_for_grid(frames[1], grid, device="cuda").cpu().numpy()
+
+    def units_ref(c, **kw):
+        s, i = engine.inspect_units(c, seg, dparams, excl, device="cuda", **kw)
+        return s, dataclasses.replace(i, areas=i.areas.astype(np.int64))
+
+    ref_units = units_ref(crops)
+    unit_anchors = ref_units[0].centroid_dict()
+    refs = {"units reference": ref_units,
+            "units aligned": units_ref(crops_shifted, ref_centroids=unit_anchors,
+                                       is_reference=False)}
+    for n_img in (1, 2):
+        fr = frame_refs[:n_img]
+        refs[f"image batch {n_img}"] = tuple(np.stack(x) for x in zip(*[
+            (i.verdicts, i.areas, i.valid, s.masks, i.defect_masks) for s, i in fr]))
+    refs["stream"] = [StreamResult(index=j, verdicts=i.verdicts, areas=i.areas, valid=i.valid,
+                                   ng_count=int(i.verdicts.sum()), seg_masks=s.masks,
+                                   defect_masks=i.defect_masks)
+                      for j, (s, i) in enumerate(frame_refs)]
+    whole = frames[0][None]
+    seg_mask = engine.segment_units(whole, seg, (), device="cuda").masks[0]
+    for tag, dp in (("threshold", dparams), ("canny", dp_canny)):
+        i = engine.detect_defects_batch(whole, seg_mask[None], dp, device="cuda")
+        refs[f"defect {tag}"] = (i.defect_masks[0], bool(i.valid[0]), int(i.areas[0]),
+                                 bool(i.verdicts[0]))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_")
+    for name, a in (("crops", crops), ("crops_shifted", crops_shifted),
+                    ("frames", np.stack(frames)), ("seg_mask", seg_mask)):
+        np.save(Path(tmp.name) / f"{name}.npy", a)
+    spec = dict(dir=tmp.name, grid=grid, seg=seg, dp=dparams, dp_canny=dp_canny, excl=excl,
+                unit_anchors=unit_anchors, stream_anchors=stream_anchors)
+    torch.cuda.empty_cache()
+    launches_by_path, walls = {}, {}
+    for backend, world in (("nccl", torch.cuda.device_count()), ("gloo", SHARDED_GLOO_RANKS)):
+        run_name = f"{backend} x{world}"
+        t0 = time.perf_counter()
+        ranks = run_spmd(functools.partial(sharded_ranks, spec), world, backend)
+        total_s = time.perf_counter() - t0
+        walls[run_name] = {}
+        for name in ranks[0]:
+            strips = name.endswith(" strips")
+            kind = name.rsplit(" ", 2)[0] if strips else "units"
+            want = digest(seg_mask if kind == "segment" else refs[kind if strips else name])
+            on = [r for r in ranks if name in r]
+            for rank, r in enumerate(on):
+                got = r[name]
+                bad = sorted(k for k in want.keys() | got["digest"].keys()
+                             if want.get(k) != got["digest"].get(k))
+                if bad:
+                    fail(f"sharded {run_name} {name}: rank {rank} differs from the single-GPU "
+                         f"engine on the card in {bad[:6]}")
+                missed = [k for k in SHARDED_KERNELS[kind] if got["launches"][k] < 1]
+                if missed:
+                    fail(f"sharded {run_name} {name}: rank {rank} launched no {missed}: "
+                         f"{got['launches']}")
+            launches_by_path[f"sharded {run_name} {name}"] = ranks[0][name]["launches"]
+            walls[run_name][name] = max(r[name]["wall_ms"] for r in on)
+            say(f"phase 4: sharded {run_name} {name}: bit-exact on its {len(on)} ranks, wall "
+                f"{walls[run_name][name]:.4f} ms (slowest rank), rank 0 launches "
+                f"{ {k: v for k, v in ranks[0][name]['launches'].items() if v} }")
+        walls[run_name]["run_spmd total s"] = total_s
+        say(f"phase 4: sharded {run_name}: {len(ranks[0])} calls, run_spmd {total_s:.2f} s "
+            f"with spawning, on {card}")
+    say("phase 4: sharded walls: ranks sharing one card measure the split's and the "
+        "collectives' overhead, not scaling")
+    tmp.cleanup()
+    return launches_by_path, walls
 
 
 def main() -> int:
@@ -1489,6 +1694,15 @@ def main() -> int:
     launches_by_path[PROBE_HOME] = dict(LAUNCHES)
     if LAUNCHES["median_probe"] < len(median_probe.MODES) * len(median_probe.TILES):
         fail(f"{PROBE_HOME}: launches {dict(LAUNCHES)}")
+
+    # the sharded paths: NCCL at world size = the GPU count, then gloo ranks
+    # sharing the card, every call held against the single-GPU engine on the
+    # card (phase 4's stream frames included)
+    mark("phase 4: the sharded paths start")
+    sharded_launches, sharded_walls = sharded_phase(work, frames, frame_refs[True], anchors, seg,
+                                                    dparams, card)
+    launches_by_path.update(sharded_launches)
+    say(f"phase 4: sharded walls (ms, the slowest rank) {json.dumps(sharded_walls)} on {card}")
 
     # ---- phase 5: times ----------------------------------------------------
     mark("phase 5 starts")

@@ -668,7 +668,7 @@ def test_cc_stats_label_outside_the_plane_sets_the_flag(cuda):
     labels = label_components(fg)
     labels[1, 4, 5] = 9 * 12  # one past the plane
     err = error_flag(cuda)
-    component_stats(labels, fg, err)
+    component_stats(labels, fg, err=err)
     assert int(err.item()) == 3
     with pytest.raises(RuntimeError, match="flag 3"):
         component_stats(labels, fg)

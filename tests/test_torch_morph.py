@@ -212,3 +212,18 @@ def test_morph_chain_rejects_bad_planes():
         tmorph.morph_chain(x, tmorph.open_stages(3), roi=x[:1])
     with pytest.raises(ValueError):
         tmorph.stage_program((("blur", ((0, -1, 1),)),))
+
+
+@pytest.mark.parametrize("op,arg", [("erode", 5), ("dilate", 3), ("morph_open", 5), ("erode_rect3", 2),
+                                    ("erode_rect3", 0)])
+def test_mask_ops_match_reference(op, arg):
+    """``erode``, ``dilate``, ``morph_open`` and ``erode_rect3`` (kernel I
+    on the card, one launch each) equal the JAX package's functions of the
+    same name on 0/255 planes, uint8 out."""
+    x = _planes(11 + arg)
+    param = arg if op == "erode_rect3" else jmorph.ellipse_se(arg)
+    got = getattr(tmorph, op)(torch.from_numpy(x), param if op == "erode_rect3"
+                              else tmorph.ellipse_se(arg))
+    ref = np.asarray(getattr(jmorph, op)(jnp.asarray(x), param))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), ref)

@@ -244,7 +244,9 @@ def test_engine_import_loads_no_jax():
         "tpu_inspect_torch.viewport, tpu_inspect_torch.utils, "
         "tpu_inspect_torch.streaming, tpu_inspect_torch.cli, tpu_inspect_torch.native, "
         "tpu_inspect_torch.utils.profile, tpu_inspect_torch.tools.median_probe, "
-        "tpu_inspect_torch.tools.kernel_bench; "
+        "tpu_inspect_torch.tools.kernel_bench, tpu_inspect_torch.parallel, "
+        "tpu_inspect_torch.parallel.launch, tpu_inspect_torch.parallel.mesh, "
+        "tpu_inspect_torch.parallel.strips; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_inspect' or m.startswith('tpu_inspect.') "
         "or m == 'cv2' or m.startswith('cv2.')]; "
@@ -269,6 +271,20 @@ def test_package_all_covers_jax_package():
     assert tpu_inspect_torch.load_grid is load_grid
     with pytest.raises(AttributeError):
         tpu_inspect_torch.no_such_name
+
+
+def test_parallel_names_cover_jax_package():
+    """``tpu_inspect_torch.parallel`` exports the JAX package's multi-chip
+    names, and the stream its sharded loop."""
+    import tpu_inspect.parallel
+    import tpu_inspect_torch.parallel
+    from tpu_inspect_torch import streaming
+
+    assert tpu_inspect_torch.parallel.__all__ == tpu_inspect.parallel.__all__
+    for name in tpu_inspect_torch.parallel.__all__:
+        obj = getattr(tpu_inspect_torch.parallel, name)
+        assert obj.__module__.startswith("tpu_inspect_torch.parallel"), name
+    assert streaming.stream_inspect_sharded.__module__ == "tpu_inspect_torch.streaming"
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):
@@ -535,3 +551,38 @@ def test_random_blob_mask_matches_reference():
         ref = j_blobs(h, w, seed=seed, n_blobs=n, scale=scale)
         assert got.dtype == ref.dtype == np.uint8
         np.testing.assert_array_equal(got, ref)
+
+
+def test_contour_area_matches_reference():
+    """``BlobAnalysis.contour_area`` (the JAX package's property): twice the
+    area as float64, halved."""
+    from tpu_inspect.ops import contour as jcontour
+    from tpu_inspect_torch.ops.contour import analyze_blobs
+
+    rng = np.random.RandomState(4)
+    fg = rng.rand(2, 21, 26) > 0.6
+    got = analyze_blobs(_t(fg)).contour_area
+    ref = jcontour.analyze_blobs(jnp.asarray(fg)).contour_area
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_result_invariant_keywords_of_the_reference():
+    """The JAX package's result-invariant keywords are taken as it calls
+    them, ``plan`` and ``rows_per_step``; a positional third argument no
+    longer reaches the bound flag, which is keyword-only."""
+    from tpu_inspect.ops import median as jmedian
+    from tpu_inspect_torch.ops.median import median_blur_u8
+
+    rng = np.random.RandomState(6)
+    fg = rng.rand(2, 17, 23) > 0.55
+    ref = np.asarray(jcc.label_components(jnp.asarray(fg), plan="rc"))
+    np.testing.assert_array_equal(cc.label_components(_t(fg), plan="rc").numpy(), ref)
+    np.testing.assert_array_equal(cc.label_components(_t(fg), "rc").numpy(), ref)
+    x = rng.randint(0, 256, (2, 13, 15), dtype=np.uint8)
+    for rows in (5, 3):
+        got = median_blur_u8(torch.from_numpy(x), 5, rows_per_step=rows)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jmedian.median_blur_u8(jnp.asarray(x), 5, rows_per_step=rows)))
+    with pytest.raises(TypeError):
+        cc.label_components(_t(fg), "rc", None)

@@ -7,7 +7,8 @@ written for Hopper (``csrc/``, kernels A-L and the Otsu head kernel): the inspec
 (:func:`tpu_inspect_torch.engine.inspect_image` with the otsu/adaptive
 segmentation and threshold/canny defect methods, the chained seg+ROI tail,
 the whole-image route, ``defect_intermediates``), the session and UI
-server, the capture stream (:mod:`tpu_inspect_torch.streaming`), the CLI
+server, the capture stream (:mod:`tpu_inspect_torch.streaming`), the
+sharded paths on ``torch.distributed`` (:mod:`tpu_inspect_torch.parallel`), the CLI
 (``python -m tpu_inspect_torch.cli``), the native libpng/libtiff loader
 (:mod:`tpu_inspect_torch.native`) and the median-probe tool. It imports
 neither jax nor :mod:`tpu_inspect`; the host-only helpers it needs are

@@ -257,7 +257,7 @@ def _whole_route(h: int, w: int) -> bool:
     return h * w > WHOLE_MIN_PX or not (seg_tail_fits(h, w) and blob_filter_fits(h, w))
 
 
-def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None, err=None):
+def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None, *, err=None):
     """:func:`ops.fused.seg_tail`'s contract on the whole-image route
     (kernels D, E and F on whole planes), with int64 stats: the port of the
     JAX package's ``raw_segment`` + ``largest_component_sums`` and
@@ -265,8 +265,8 @@ def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None, err=None)
     set, read by the caller; without one each launch reads its own."""
     m = tail_mask(x, stages, thr, chain=morph_chain)
     if fill:
-        m = m | ~exterior_background(m, err)
-    best, stats = component_stats(label_components(m, err), m, err)
+        m = m | ~exterior_background(m, err=err)
+    best, stats = component_stats(label_components(m, err=err), m, err=err)
     out = best if out_largest else m
     return out.to(torch.uint8) * 255, stats
 
@@ -279,8 +279,8 @@ def _fill_regions(m: torch.Tensor, err=None):
     top-level blobs through the candidates, 8-connected
     (``contour.py:596-602``). ``err`` as for :func:`_whole_tail`."""
     u, h, w = m.shape
-    ext = exterior_background(m, err)
-    fill_labels = label_components(~ext, err)
+    ext = exterior_background(m, err=err)
+    fill_labels = label_components(~ext, err=err)
     lin = torch.arange(h * w, dtype=torch.int32, device=m.device).reshape(1, h, w)
     top = propagate(m & (fill_labels == lin), m, conn8=True, err=err)
     return fill_labels, top, ext
@@ -378,19 +378,22 @@ def _defect_roi(seg_masks, erode_px: int, err=None):
     )
 
 
-def _candidates(crops, params: DefectParams, roi_stats, err=None):
-    """Pre-ROI candidate plane: the median residual over the ROI rows, or
-    Canny edges (indexing_ui.py:1519-1539). A median window of k*k >= 2048
-    takes the full median blur (kernel H) over every row, and
-    THRESH_BINARY of |x - bg| (``engine.py:461-465`` of the JAX package).
-    ``err``: the bound flag of Canny's kernel D."""
+def _candidates(crops, params: DefectParams, roi_stats=None, err=None):
+    """Pre-ROI candidate plane: the median residual over the ROI rows (the
+    row bounds of ``roi_stats``; every row without it), or Canny edges
+    (indexing_ui.py:1519-1539). A median window of k*k >= 2048 takes the
+    full median blur (kernel H) over every row, and THRESH_BINARY of
+    |x - bg| (``engine.py:461-465`` of the JAX package). ``err``: the bound
+    flag of Canny's kernel D."""
     thr = int(params.threshold)
     if params.method == "canny":
-        return canny_u8(crops, max(1, thr // 2), max(2, thr), err)
+        return canny_u8(crops, max(1, thr // 2), max(2, thr), err=err)
     k = _median_k(params)
     if k * k >= 2048:
         bg = median_blur_u8(crops, k)
         return threshold_binary((crops.to(torch.int16) - bg.to(torch.int16)).abs(), thr)
+    if roi_stats is None:
+        return median_residual_mask(crops, k, thr)
     return median_residual_mask(
         crops, k, thr,
         row_lo=roi_stats[:, 4].to(torch.int32).contiguous(),
@@ -398,10 +401,11 @@ def _candidates(crops, params: DefectParams, roi_stats, err=None):
     )
 
 
-def _defect_from_roi(crops, roi, roi_stats, params: DefectParams, err=None):
-    """Defect pass given the ROI and its stats row ([U, 8]: area, ..., row
-    bounds), from :func:`_defect_roi` or kernel K -> (masks u8, found bool,
-    area int32, verdict bool) (indexing_ui.py:1519-1572, :1669-1700)."""
+def _defect_tail(cand, roi, roi_stats, params: DefectParams, whole: bool, err=None):
+    """Defect pass given the pre-ROI candidates, the ROI and its stats row
+    ([U, 8]: area, ..., row bounds) -> (masks u8, found bool, area, verdict
+    bool): kernel C, or with ``whole`` the whole-image route's
+    :func:`_whole_blobs` (indexing_ui.py:1519-1572, :1669-1700)."""
     roi_area = roi_stats[:, 0]
     # max_area = max(min_area, int(roi_area * 0.98)): truncation of the
     # double product; the filter compares exact 2x contour areas
@@ -410,14 +414,21 @@ def _defect_from_roi(crops, roi, roi_stats, params: DefectParams, err=None):
         torch.floor(roi_area.to(torch.float64) * float(params.max_area_frac)),
         min=min_area,
     ).to(torch.int32)
-    filt = _whole_blobs if _whole_route(*crops.shape[1:]) else blob_filter
+    filt = _whole_blobs if whole else blob_filter
     out, area = filt(
-        _candidates(crops, params, roi_stats, err), (2 * max_area).contiguous(),
-        min_x2=2 * min_area, roi=roi, pre_open=params.method == "threshold", err=err,
+        cand, (2 * max_area).contiguous(), min_x2=2 * min_area, roi=roi,
+        pre_open=params.method == "threshold", err=err,
     )
     found = area > 0
     verdict = found & (area >= min_area)
     return out, found, area, verdict
+
+
+def _defect_from_roi(crops, roi, roi_stats, params: DefectParams, err=None):
+    """Defect pass given the ROI and its stats row, from :func:`_defect_roi`
+    or kernel K -> (masks u8, found bool, area int32, verdict bool)."""
+    return _defect_tail(_candidates(crops, params, roi_stats, err), roi, roi_stats, params,
+                        _whole_route(*crops.shape[1:]), err)
 
 
 def _defect(crops, seg_masks, params: DefectParams, err=None):
@@ -564,7 +575,7 @@ def defect_intermediates(crop, seg_mask, params: DefectParams,
     cand = candidate_mask(_candidates(crops, params, st, err), roi, pre_open, chain=morph_chain)
     if pre_open:
         out["resid_area"] = int(cand.sum())
-    analysis = analyze_blobs(cand, err)
+    analysis = analyze_blobs(cand, err=err)
     build.check_bounded("defect_intermediates", err)
     a2 = _to_numpy(analysis.contour_area_x2[0])
     roots = _to_numpy(analysis.is_root[0])

@@ -85,7 +85,7 @@ def canny_planes(x: torch.Tensor, low: int, high: int):
     return strong, cand
 
 
-def canny_u8(x: torch.Tensor, low: int, high: int, err=None) -> torch.Tensor:
+def canny_u8(x: torch.Tensor, low: int, high: int, *, err=None) -> torch.Tensor:
     """x [U, H, W] uint8 -> edges uint8 0/255; low/high as cv2.Canny (their
     order does not matter). On CUDA tensors it launches kernel D once
     (``err`` as for :func:`tpu_inspect_torch.ops.flood.propagate`)."""

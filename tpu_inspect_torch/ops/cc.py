@@ -84,10 +84,12 @@ def label_components_plain(fg: torch.Tensor) -> torch.Tensor:
     return propagate_min(init, fg, conn8=True).to(torch.int32)
 
 
-def label_components(fg: torch.Tensor, err=None) -> torch.Tensor:
+def label_components(fg: torch.Tensor, plan: str = "crc", *, err=None) -> torch.Tensor:
     """fg [U, H, W] bool (or uint8, nonzero = fg) -> int32 labels: the
     raster-first pixel index ``y*W + x`` of each 8-connected component,
-    BIG on background. ``err`` as for
+    BIG on background. ``plan`` is the JAX package's sweep-plan hint for its
+    TPU kernel ("crc" or "rc"); the result does not depend on it, and it is
+    accepted and ignored here. ``err`` as for
     :func:`tpu_inspect_torch.ops.flood.propagate`."""
     fg = as_planes(fg, "label_components")
     if fg.device.type == "cpu":
@@ -178,7 +180,7 @@ def component_stats_plain(labels: torch.Tensor, fg: torch.Tensor):
     return mask, stats
 
 
-def component_stats(labels: torch.Tensor, fg: torch.Tensor, err=None):
+def component_stats(labels: torch.Tensor, fg: torch.Tensor, *, err=None):
     """Largest 8-connected component per unit from given labels; kernel F.
 
     ``labels`` [U, H, W] int32 are :func:`label_components`' (the

@@ -36,6 +36,11 @@ class BlobAnalysis:
     contour_area_x2: torch.Tensor  # [U, H*W] int32: 2*contourArea per root
     is_root: torch.Tensor  # [U, H*W] bool marks valid top-level blob roots
 
+    @property
+    def contour_area(self) -> torch.Tensor:
+        """cv2.contourArea per root as float64 (areas are half-integers)."""
+        return self.contour_area_x2.to(torch.float64) * 0.5
+
 
 def contour_sums_x2(top, ext, fill_labels) -> torch.Tensor:
     """Signed twice-contourArea of each top-level blob, summed into its fill
@@ -71,16 +76,16 @@ def contour_sums_x2(top, ext, fill_labels) -> torch.Tensor:
     return sums[:, :hw]
 
 
-def analyze_blobs(fg: torch.Tensor, err=None) -> BlobAnalysis:
+def analyze_blobs(fg: torch.Tensor, *, err=None) -> BlobAnalysis:
     """fg [U, H, W] bool candidate mask -> per-blob contour areas. On CUDA
     tensors it launches kernel D once and kernel E twice (``err`` as for
     :func:`tpu_inspect_torch.ops.flood.propagate`)."""
     u, h, w = fg.shape
     hw = h * w
-    ext = exterior_background(fg, err)
+    ext = exterior_background(fg, err=err)
     fill = ~ext
-    fill_labels = label_components(fill, err)
-    fg_labels = label_components(fg, err)
+    fill_labels = label_components(fill, err=err)
+    fg_labels = label_components(fg, err=err)
     top = fg & (fg_labels == fill_labels)
     areas_x2 = contour_sums_x2(top, ext, fill_labels).abs().to(torch.int32)
     lin = torch.arange(hw, device=fg.device, dtype=torch.int32)[None, :]

@@ -73,7 +73,7 @@ def seg_tail_plain(x, stages=(), fill=False, out_largest=False, thr=None):
     return out.to(torch.uint8) * 255, stats.to(torch.int32)
 
 
-def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None, err=None):
+def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None, *, err=None):
     """x [U, H, W] uint8 (gray with ``thr`` [U] int32, else any >0 = fg) ->
     (mask [U, H, W] uint8 0/255, stats [U, 8] int32).
 
@@ -119,7 +119,7 @@ def seg_roi_tail_plain(x, stages, roi_stages, thr, zone=None):
     return mask, stats, roi, roi_stats
 
 
-def seg_roi_tail(x, stages, roi_stages, thr, zone=None, err=None):
+def seg_roi_tail(x, stages, roi_stages, thr, zone=None, *, err=None):
     """The chained seg tail + shared exclusion zone + ROI tail of the
     reference capture.
 

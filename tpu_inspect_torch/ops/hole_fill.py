@@ -22,7 +22,7 @@ def exterior_background_plain(fg: torch.Tensor) -> torch.Tensor:
     return propagate_plain(None, ~fg, conn8=False, border_seed=True)
 
 
-def exterior_background(fg: torch.Tensor, err=None) -> torch.Tensor:
+def exterior_background(fg: torch.Tensor, *, err=None) -> torch.Tensor:
     """Background 4-connected to the border. fg: [U, H, W] bool -> bool.
     ``err`` as for :func:`tpu_inspect_torch.ops.flood.propagate`."""
     return propagate(None, (~fg).contiguous(), conn8=False, border_seed=True, err=err)

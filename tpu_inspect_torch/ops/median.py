@@ -203,16 +203,18 @@ def median_blur_u8_plain(x, k: int, rows_per_step: int = 8):
     return out
 
 
-def median_blur_u8(x, k: int):
+def median_blur_u8(x, k: int, rows_per_step: int = 5):
     """x [U, H, W] uint8 -> the exact k x k median [U, H, W] uint8
     (cv2.medianBlur parity, BORDER_REPLICATE: every window holds k*k
     clamped-coordinate samples, even when k exceeds H or W; the median is
     the sample of 1-based rank (k*k+1)//2). Any odd k >= 1; k = 1 returns
-    ``x``."""
-    return _median_blur(x, k)
+    ``x``. ``rows_per_step`` is the output rows of one step of the plain
+    version's scan (the JAX package's keyword); the result does not depend
+    on it, and the kernel picks its own strip rows."""
+    return _median_blur(x, k, rows_per_step=rows_per_step)
 
 
-def _median_blur(x, k: int, strip=None):
+def _median_blur(x, k: int, strip=None, rows_per_step: int = 5):
     """:func:`median_blur_u8` with the kernel's strip rows given (None:
     :func:`strip_rows`); the result does not depend on them. The tests and
     the rig's ``--strips`` sweep call it."""
@@ -223,7 +225,7 @@ def _median_blur(x, k: int, strip=None):
     u, h, w = x.shape
     strip = _strip(strip, "median_blur", u, h, w)
     if x.device.type == "cpu":
-        return median_blur_u8_plain(x, k)
+        return median_blur_u8_plain(x, k, rows_per_step)
     if u >= 65536 or k >= 2**31:
         raise ValueError(f"median_blur_u8: {u} units or k={k} beyond the kernel's grid")
     out = torch.empty_like(x)

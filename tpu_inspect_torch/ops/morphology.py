@@ -224,6 +224,12 @@ def _stage_layout(stages) -> tuple[tuple[int, int, bool], ...]:
     return tuple(out)
 
 
+def chain_row_reach(stages) -> int:
+    """Rows a stage chain reaches each way: the sum of its stages' row
+    reaches (the halo a strip of the plane needs for the chain)."""
+    return sum(s[1] for s in _stage_layout(tuple(stages)))
+
+
 @functools.lru_cache(maxsize=256)
 def morph_tiles(u: int, h: int, w: int, stages):
     """Kernel I's tiling of a chain on [u, h, w] masks: (tile rows, tile
@@ -318,3 +324,35 @@ def morph_chain(x: torch.Tensor, stages, thr=None, roi=None) -> torch.Tensor:
     build.check("morph_chain", err)
     LAUNCHES["morph"] += 1
     return out.view(torch.bool)
+
+
+def _on_mask(x: torch.Tensor, stages) -> torch.Tensor:
+    """:func:`morph_chain` on a mask (any nonzero = fg) as uint8 0/255."""
+    return morph_chain(x, stages).to(torch.uint8) * 255
+
+
+def erode(x: torch.Tensor, se: np.ndarray) -> torch.Tensor:
+    """cv2.erode of [U, H, W] masks with the SE ``se`` (OpenCV borders):
+    uint8 0/255, what :func:`tpu_inspect.ops.morphology.erode` gives on
+    0/255 planes; one launch of kernel I on CUDA tensors."""
+    return _on_mask(x, (("erode", _runs_tuple(se)),))
+
+
+def dilate(x: torch.Tensor, se: np.ndarray) -> torch.Tensor:
+    """cv2.dilate of [U, H, W] masks, as :func:`erode`."""
+    return _on_mask(x, (("dilate", _runs_tuple(se)),))
+
+
+def morph_open(x: torch.Tensor, se: np.ndarray) -> torch.Tensor:
+    """Erode then dilate with ``se``, in one launch of kernel I."""
+    runs = _runs_tuple(se)
+    return _on_mask(x, (("erode", runs), ("dilate", runs)))
+
+
+def erode_rect3(x: torch.Tensor, iterations: int) -> torch.Tensor:
+    """cv2.erode(x, None, iterations=n) of [U, H, W] masks: one (2n+1)^2
+    rect erode (:func:`rect_erode_stages`), uint8 0/255; n <= 0 returns
+    ``x`` as :func:`tpu_inspect.ops.morphology.erode_rect3` does."""
+    if int(iterations) <= 0:
+        return x
+    return _on_mask(x, rect_erode_stages(iterations))

@@ -15,6 +15,10 @@ before it on the stream.
 Verdicts, areas and found flags (a few hundred bytes) are fetched per
 frame; masks stay on the device unless ``fetch_masks`` asks for them
 (fetching 48 full masks costs more than computing them).
+
+:func:`stream_inspect_sharded` is the multi-GPU loop: frames in batches of
+a rank mesh's image axis, each batch inspected with both axes sharded
+(:mod:`tpu_inspect_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -185,3 +189,57 @@ def stream_inspect_paths(
         fetch_masks=fetch_masks,
         device=device,
     )
+
+
+def stream_inspect_sharded(
+    images: Iterable[np.ndarray],
+    grid: GridParams,
+    seg: SegmentationParams | None = None,
+    defect: DefectParams | None = None,
+    exclusions=(),
+    ref_centroids: dict[int, tuple[float, float]] | None = None,
+    mesh=None,
+    fetch_masks: bool = False,
+) -> Iterator[StreamResult]:
+    """Multi-GPU streaming over a 2-D ("image", "unit") mesh of ranks
+    (BASELINE.json config 5; default ``image_unit_mesh(2)``): frames are
+    grouped into batches of the mesh's image-axis size and each batch is
+    inspected with both axes sharded
+    (:func:`tpu_inspect_torch.parallel.mesh.inspect_image_batch_sharded`:
+    every rank is given the same frames and uploads only its own). A ragged
+    final batch is padded by repeating the last frame; padding results are
+    dropped. Every rank yields the same results.
+    """
+    from tpu_inspect_torch.parallel.mesh import image_unit_mesh, inspect_image_batch_sharded
+
+    mesh = mesh or image_unit_mesh(2)
+    batch = int(mesh.shape["image"])
+
+    def flush(frames: list[np.ndarray], start: int) -> Iterator[StreamResult]:
+        n = len(frames)
+        padded = frames + [frames[-1]] * (batch - n)
+        verdicts, areas, found, masks, dmasks = inspect_image_batch_sharded(
+            np.stack(padded), grid, seg, defect, exclusions=exclusions,
+            ref_centroids=ref_centroids, mesh=mesh,
+        )
+        for j in range(n):
+            yield StreamResult(
+                index=start + j,
+                verdicts=verdicts[j],
+                areas=areas[j],
+                valid=found[j],
+                ng_count=int(verdicts[j].sum()),
+                seg_masks=masks[j] if fetch_masks else None,
+                defect_masks=dmasks[j] if fetch_masks else None,
+            )
+
+    pending: list[np.ndarray] = []
+    start = 0
+    for image in images:
+        pending.append(np.asarray(image))
+        if len(pending) == batch:
+            yield from flush(pending, start)
+            start += batch
+            pending = []
+    if pending:
+        yield from flush(pending, start)
