@@ -31,7 +31,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    units' eroded seg masks with an empty and a full unit, and on the one
    unit of the erosion preview; kernel K (the chained seg tail, zone and
    ROI tail) on the 48 units with and without the zone at erode_px 0, 6 and
-   12; kernel L (the median probe) in its baseline mode at each tile shape;
+   12; kernel L (the median probe) in its baseline mode at each strip length
+   (k = 9 with row bounds, k = 21 on every row);
    the Otsu kernel (histogram and scan) on the 48 blurred crops and on the
    whole plane; kernels A and K at erode_px 200 and A, C and K on units too
    large for their shared-memory layout (the global-scratch variant);
@@ -74,7 +75,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    frame held against ``inspect_image`` on the card; ``stream_inspect_paths``
    over PNG files and the CLI as subprocesses (gridgen, inspect, stream,
    doctor, profile), where the host can decode files (the port's
-   libpng/libtiff loader, or cv2); the median-probe tool (kernel L's sweep);
+   libpng/libtiff loader, or cv2); the median-probe tool (kernel L's sweep of
+   the walk's ablation modes x strip lengths);
    and, after a warm-up call, one capture's default program
    (``engine._inspect_image_device``: the reference capture, otsu/threshold,
    the exclusions) dispatched under ``torch.cuda.set_sync_debug_mode("error")``:
@@ -109,7 +111,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    calls, the chained ``inspect_image`` against the split one, the stream's
    device and wall ms per frame at prefetch 1 and 2 beside its modeled
    bound (frame bytes over the measured pinned H2D rate, plus the device
-   time), the native decode per frame, the median probe's table, and a
+   time), the native decode per frame, the median probe's table (each
+   ablation's share of the baseline), and a
    ``torch.profiler`` breakdown (:mod:`tpu_inspect_torch.utils.profile`) of
    each combo, the chain and the stream.
 
@@ -183,7 +186,7 @@ STREAM_CHAIN_HOME = "stream chained, no anchors"
 STREAM_REPEATS = 3  # the timed stream: the frames this many times over
 # kernel L's path: the median-probe tool's sweep
 PROBE_HOME = "median probe tool"
-PROBE_FORM = "baseline 32x8"  # kernel B's tile in L's design: L's top-level numbers
+PROBE_FORM = "baseline S32"  # kernel B's strip on grid units: L's top-level numbers
 
 
 def fail(msg: str) -> None:
@@ -792,10 +795,10 @@ def main() -> int:
             ("chained, zone, erode 6", lambda f: f(x, co, erode, thr, zone), (x, thr, zone)),
         ],
         "median_probe": [
-            (f"baseline {tw}x{th}",
-             lambda f, t=(tw, th): f(crops, k, t_res, row_lo, row_hi, "baseline", t),
+            (f"baseline S{sp}",
+             lambda f, sp=sp: f(crops, k, t_res, row_lo, row_hi, "baseline", sp),
              (roi_rows_b, row_lo, row_hi))
-            for tw, th in median_probe.TILES
+            for sp in median_probe.STRIPS
         ],
         "otsu": [
             ("48 blurred crops", lambda f: f(x), (x,)),
@@ -905,31 +908,41 @@ def main() -> int:
             ("whole plane", lambda f: f(x_w), (x_w,)),
         ],
     }
-    # the walk's forms (kernels B and H): the rows each unit walks, for the
-    # design's operation count (walk_ops): B's ROI rows, H's every row
+    # the walk's forms (kernels B, H and L): the rows each unit walks and
+    # the strip rows, for the design's operation count (walk_ops): B's and
+    # L's ROI rows, H's every row; B and H at their wrappers' strips
     def roi_rows(lo, hi, n_rows):
         return [max(0, min(b, n_rows) - max(a, 0)) for a, b in zip(lo.tolist(), hi.tolist())]
 
+    def walk_form(name, rows, hh, ww, kk, strip=None):
+        return rows, hh, ww, kk, strip or strip_rows(name, len(rows), hh, ww)
+
     hh_w, ww_w = whole.shape[1:]
     walk_forms = {
-        ("median_residual", "roi rows"): (roi_rows(row_lo, row_hi, h), h, w, k),
-        ("median_residual", "k 45, roi rows"): (roi_rows(row_lo, row_hi, h), h, w, 45),
+        ("median_residual", "roi rows"):
+            walk_form("median_residual", roi_rows(row_lo, row_hi, h), h, w, k),
+        ("median_residual", "k 45, roi rows"):
+            walk_form("median_residual", roi_rows(row_lo, row_hi, h), h, w, 45),
         ("median_residual", "whole plane, ROI rows"):
-            (roi_rows(row_lo_w, row_hi_w, hh_w), hh_w, ww_w, k),
+            walk_form("median_residual", roi_rows(row_lo_w, row_hi_w, hh_w), hh_w, ww_w, k),
         ("median_residual", "whole plane, ROI rows, k 45"):
-            (roi_rows(row_lo_w, row_hi_w, hh_w), hh_w, ww_w, 45),
-        **{("median_blur", f"k {kb}, 48 units"): ([h] * crops.shape[0], h, w, kb)
-           for kb in (BIG_K, 49, 101)},
-        ("median_blur", f"k {BIG_K}, whole plane"): ([hh_w], hh_w, ww_w, BIG_K),
+            walk_form("median_residual", roi_rows(row_lo_w, row_hi_w, hh_w), hh_w, ww_w, 45),
+        **{("median_blur", f"k {kb}, 48 units"):
+           walk_form("median_blur", [h] * crops.shape[0], h, w, kb) for kb in (BIG_K, 49, 101)},
+        ("median_blur", f"k {BIG_K}, whole plane"):
+            walk_form("median_blur", [hh_w], hh_w, ww_w, BIG_K),
+        **{("median_probe", f"baseline S{sp}"):
+           walk_form("median_probe", roi_rows(row_lo, row_hi, h), h, w, k, sp)
+           for sp in median_probe.STRIPS},
     }
 
     def design_floor(name, label):
         """(ops per walked pixel, ms at the int32 issue rate) of a walk form."""
-        rows, hh, ww, kk = walk_forms[(name, label)]
-        ops = walk_ops(rows, hh, ww, kk, strip_rows(name, len(rows), hh, ww))
+        rows, hh, ww, kk, strip = walk_forms[(name, label)]
+        ops = walk_ops(rows, hh, ww, kk, strip)
         return ops / max(1, ww * sum(rows)), ops / INT32_OPS_PER_S * 1e3
 
-    def probe_plain(x_, k_, thr_, lo=None, hi=None, mode="baseline", tile=None):
+    def probe_plain(x_, k_, thr_, lo=None, hi=None, mode="baseline", strip=None):
         """Kernel L's plain version: kernel B's (its baseline mode only; the
         ablations are timed, never compared)."""
         if mode != "baseline":
@@ -1042,10 +1055,11 @@ def main() -> int:
              lambda f: f(gray_ef, close_open_stages(3), rect_erode_stages(6), thr_r, zone_r)),
             ("seg_roi_tail", "no zone, erode 12",
              lambda f: f(gray_ef, close_open_stages(3), rect_erode_stages(12), thr_r)),
-            ("median_probe", "baseline 64x8",
-             lambda f: f(gray, 9, 24, lo_r, hi_r, "baseline", (64, 8))),
-            ("median_probe", "baseline 16x16, every row",
-             lambda f: f(gray, 21, 0, None, None, "baseline", (16, 16))),
+            *(case for sp in median_probe.STRIPS for case in (
+                ("median_probe", f"baseline S{sp}",
+                 lambda f, sp=sp: f(gray, 9, 24, lo_r, hi_r, "baseline", sp)),
+                ("median_probe", f"baseline S{sp}, every row",
+                 lambda f, sp=sp: f(gray, 21, 0, None, None, "baseline", sp)))),
             ("otsu", "random", lambda f: f(gray)),
             ("otsu", "two-level", lambda f: f(blobs_t)),
         ]
@@ -1688,11 +1702,11 @@ def main() -> int:
         say(f"phase 4: cli | {line}")
     say(f"phase 4: cli subprocess walls (s) {json.dumps(cli_s)}")
 
-    # kernel L's path: the median-probe tool's sweep (modes x tile shapes)
+    # kernel L's path: the median-probe tool's sweep (modes x strip rows)
     reset_launches()
     probe_table = median_probe.main()
     launches_by_path[PROBE_HOME] = dict(LAUNCHES)
-    if LAUNCHES["median_probe"] < len(median_probe.MODES) * len(median_probe.TILES):
+    if LAUNCHES["median_probe"] < len(median_probe.MODES) * len(median_probe.STRIPS):
         fail(f"{PROBE_HOME}: launches {dict(LAUNCHES)}")
 
     # the sharded paths: NCCL at world size = the GPU count, then gloo ranks
@@ -1894,8 +1908,10 @@ def main() -> int:
     else:
         say("phase 5: native decode not measured: this host has no libpng/libtiff to build "
             f"the port's loader against (files decoded by {decoder})")
-    say(f"phase 5: median probe (kernel L) ms per launch by mode and tile: "
-        f"{json.dumps({f'{m} {t[0]}x{t[1]}': v for (m, t), v in probe_table.items()})} "
+    say(f"phase 5: median probe (kernel L) ms per launch by mode and strip: "
+        f"{json.dumps({f'{m} S{sp}': v for (m, sp), v in probe_table.items()})}; each "
+        f"ablation's share of the baseline: "
+        f"{json.dumps({f'{m} S{sp}': v for (m, sp), v in median_probe.shares(probe_table).items()})} "
         f"on {card}")
     tmp.cleanup()
 
@@ -1944,7 +1960,7 @@ def main() -> int:
     }
     # kernel I's top-level numbers are its 13x13 erode form on the whole
     # plane, the form with a library yardstick (one of its launches there);
-    # kernel L's its baseline at kernel B's tile
+    # kernel L's its baseline at kernel B's strip
     home_form = {"morph": "whole erode 13x13", "median_probe": PROBE_FORM}
 
     def summed(rows, path):
@@ -1974,7 +1990,7 @@ def main() -> int:
         if name == "morph":
             entry["library_ms_48_units"] = lib_ms["erode 13x13, 48 units"]
         if name == "median_probe":
-            entry["sweep_ms"] = {f"{m} {t[0]}x{t[1]}": v for (m, t), v in probe_table.items()}
+            entry["sweep_ms"] = {f"{m} S{sp}": v for (m, sp), v in probe_table.items()}
         if whole_rows and home_rows is not whole_rows:
             entry["whole"] = {**summed(whole_rows, WHOLE_HOME),
                               "launches": launches_by_path[WHOLE_HOME][name]}

@@ -31,6 +31,7 @@ from tpu_inspect_torch.ops.flood import propagate, propagate_plain
 from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
 from tpu_inspect_torch.ops.fused import seg_roi_tail, seg_roi_tail_plain, seg_tail, seg_tail_plain
 from tpu_inspect_torch.ops.median import (
+    _median_residual,
     median_blur_u8,
     median_blur_u8_plain,
     median_residual_mask,
@@ -50,7 +51,7 @@ from tpu_inspect_torch.kernels import build, error_flag
 from tpu_inspect_torch.ops.threshold import otsu_threshold
 from tpu_inspect_torch.streaming import stream_inspect
 from tpu_inspect_torch.synthetic import make_mold_image, serpentine_plane, standard_workload
-from tpu_inspect_torch.tools.median_probe import MODES, TILES, probe
+from tpu_inspect_torch.tools.median_probe import MODES, STRIPS, probe
 
 pytestmark = pytest.mark.cuda
 
@@ -374,22 +375,27 @@ def test_stream_cuda_matches_cpu(cuda, prefetch):
             assert np.array_equal(getattr(a, f), getattr(b, f)), f
 
 
-@pytest.mark.parametrize("tile", TILES)
-def test_median_probe_baseline_matches_plain(cuda, tile):
-    """Kernel L's baseline equals kernel B's plain version at every tile
-    shape; the ablations launch (they are timed, never compared)."""
+@pytest.mark.parametrize("strip", STRIPS)
+def test_median_probe_baseline_matches_plain(cuda, strip):
+    """Kernel L's baseline equals kernel B at the same strip and B's plain
+    version: k = 3, 21 and 45, word-edge widths and H = 1, a unit whose ROI
+    is empty and one that covers every row. The ablations launch and return
+    (they are timed, never compared)."""
     rng = np.random.RandomState(17)
-    x = torch.from_numpy(rng.randint(0, 256, (3, 37, 53), dtype=np.uint8)).to(cuda)
-    lo = torch.tensor([0, 4, 37], dtype=torch.int32, device=cuda)
-    hi = torch.tensor([37, 30, 0], dtype=torch.int32, device=cuda)
-    for k, thr in [(3, 0), (21, 24), (45, 255)]:
-        _assert_equal(probe(x, k, thr, lo, hi, "baseline", tile),
-                      median_residual_mask_plain(x, k, thr, lo, hi))
-    reset_launches()
-    for mode in MODES[1:]:
-        assert probe(x, 21, 24, lo, hi, mode, tile).shape == x.shape
-    torch.cuda.synchronize()
-    assert LAUNCHES["median_probe"] == len(MODES) - 1
+    for shape in [(3, 37, 53), (3, 40, 1), (3, 40, 31), (3, 40, 32), (3, 40, 33), (3, 1, 40)]:
+        u, h, w = shape
+        x = torch.from_numpy(rng.randint(0, 256, shape, dtype=np.uint8)).to(cuda)
+        lo = torch.tensor([0, min(4, h - 1), h], dtype=torch.int32, device=cuda)
+        hi = torch.tensor([h, h - 1 if h > 1 else h, 0], dtype=torch.int32, device=cuda)
+        for k, thr in [(3, 0), (21, 24), (45, 255)]:
+            got = probe(x, k, thr, lo, hi, "baseline", strip)
+            _assert_equal(got, _median_residual(x, k, thr, lo, hi, strip=strip))
+            _assert_equal(got, median_residual_mask_plain(x, k, thr, lo, hi))
+        reset_launches()
+        for mode in MODES[1:]:
+            assert probe(x, 21, 24, lo, hi, mode, strip).shape == x.shape
+        torch.cuda.synchronize()
+        assert LAUNCHES["median_probe"] == len(MODES) - 1
 
 
 def _staircase(h, w):

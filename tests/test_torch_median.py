@@ -10,6 +10,8 @@ planes.
 """
 
 import importlib
+import re
+from pathlib import Path
 from unittest import mock
 
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from tpu_inspect.ops import median as jmedian
 from tpu_inspect.ops import threshold as jthr
 
 from tpu_inspect_torch.ops.median import median_residual_mask, median_residual_mask_plain
+from tpu_inspect_torch.tools.median_probe import MODES, STRIPS, probe
 
 _ORIG_PALLAS_CALL = pl.pallas_call
 
@@ -81,13 +84,11 @@ def test_whole_plane_matches_reference_median(k, thr):
 
 
 
-@pytest.mark.parametrize("tile", [(32, 8), (64, 8)])
-def test_median_probe_baseline_and_ablations(tile):
+@pytest.mark.parametrize("strip", STRIPS)
+def test_median_probe_baseline_and_ablations(strip):
     """The median-probe tool (kernel L): its baseline on the CPU is kernel
     B's plain version, equal to the JAX package's medianBlur residual on
     the ROI rows; its ablations, wrong by construction, refuse the CPU."""
-    from tpu_inspect_torch.tools.median_probe import MODES, probe
-
     rng = np.random.RandomState(31)
     x = rng.randint(0, 256, (3, 23, 29), dtype=np.uint8)
     lo = np.array([0, 4, 23], np.int32)
@@ -98,10 +99,24 @@ def test_median_probe_baseline_and_ablations(tile):
     rows = np.arange(23)[None, :, None]
     ref = np.where((rows >= lo[:, None, None]) & (rows < hi[:, None, None]), ref, 0)
     xt, lo_t, hi_t = torch.from_numpy(x), torch.from_numpy(lo), torch.from_numpy(hi)
-    got = probe(xt, 21, 24, lo_t, hi_t, "baseline", tile).numpy()
+    got = probe(xt, 21, 24, lo_t, hi_t, "baseline", strip).numpy()
     np.testing.assert_array_equal(got, ref.astype(np.uint8))
     for mode in MODES[1:]:
         with pytest.raises(ValueError, match="ablation"):
-            probe(xt, 21, 24, lo_t, hi_t, mode, tile)
-    with pytest.raises(ValueError):
-        probe(xt, 21, 24, lo_t, hi_t, "baseline", (8, 8))
+            probe(xt, 21, 24, lo_t, hi_t, mode, strip)
+    with pytest.raises(ValueError, match="strip"):
+        probe(xt, 21, 24, lo_t, hi_t, "baseline", strip + 1)
+
+
+def test_median_probe_modes_match_the_kernel():
+    """The tool's MODES, whose index it passes to kernel L, name the
+    kernel's modes in their order: csrc/median_hist.cuh's Mode enum and
+    the instantiation csrc/median_probe.cu launches for each index. A
+    mismatch would time one ablation under another's name."""
+    csrc = Path(probe.__code__.co_filename).resolve().parents[1] / "csrc"
+    enum = re.search(r"enum Mode \{([^}]*)\}", (csrc / "median_hist.cuh").read_text())
+    names = [n.strip().split("=")[0].strip() for n in enum.group(1).split(",")]
+    assert tuple(n[1:].lower() for n in names) == MODES
+    cases = re.findall(r"case (\d+): return launch<mh::(\w+)>",
+                       (csrc / "median_probe.cu").read_text())
+    assert cases == [(str(i), n) for i, n in enumerate(names)]

@@ -13,6 +13,9 @@ same cases. The file imports neither jax nor tpu_inspect:
 Tolerance is exact equality: both compute integer results.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -227,6 +230,82 @@ def test_strip_rows_and_bad_strip():
             _median_residual(x, 3, 0, strip=bad)
         with pytest.raises(ValueError, match="strip"):
             _median_blur(x, 3, strip=bad)
+
+
+_CSRC = Path(__file__).resolve().parents[1] / "tpu_inspect_torch" / "csrc"
+# the ablation modes' bound on band moves (csrc/median_hist.cuh)
+MAX_MOVES = int(re.search(r"kMaxMoves = (\d+);", (_CSRC / "median_hist.cuh").read_text())[1])
+
+
+def _band_query(bins: np.ndarray, rank: int, base: int, below: int, bounded: bool):
+    """numpy model of one column's band query in ``median_hist.cuh``'s walk:
+    move ``base`` band by band to the band holding the rank, then find the
+    bin. ``bounded`` is the ablation modes' loop: at most MAX_MOVES moves,
+    ``base`` clamped to 0..240. Returns (median, base after, the bases read);
+    the unbounded loop gives up after 1000 moves (the kernel would not)."""
+    read = []
+    for moves in range(1000):
+        read.append(base)
+        s = bins[base:base + 16].sum() if 0 <= base <= 240 else 0
+        if bounded and moves == MAX_MOVES:
+            return base, base, read
+        if rank <= below:
+            base = max(base - 16, 0) if bounded else base - 16
+            read.append(base)
+            below -= bins[base:base + 16].sum() if 0 <= base <= 240 else 0
+        elif rank > below + s:
+            below += s
+            base = min(base + 16, 240) if bounded else base + 16
+        else:
+            hit = np.nonzero(below + np.cumsum(bins[base:base + 15]) >= rank)[0]
+            return base + (int(hit[0]) if hit.size else 15), base, read
+    return None, base, read
+
+
+# wrong counts the ablations can leave (nowarm: removals from bins never
+# added to; noatomic: lost updates; both: a 16-bit half that borrowed from
+# its neighbour reads as up to 65535), with a carried base and below that
+# no longer match them
+BAD_HISTOGRAMS = {
+    "empty": lambda rng: np.zeros(256, np.int64),
+    "negative": lambda rng: -rng.randint(0, 50, 256),
+    "borrowed halves": lambda rng: np.where(rng.rand(256) < 0.1, 65535, 0),
+    "signed mix": lambda rng: rng.randint(-441, 442, 256),
+}
+
+
+@pytest.mark.parametrize("kind", list(BAD_HISTOGRAMS))
+def test_ablation_band_loop_ends_in_bounds(kind):
+    """The ablation modes' bounded band loop ends within MAX_MOVES moves
+    with every band it reads, and ``base``, in 0..240, on any counts and
+    any carried base/below; on counts where the unbounded loop (the
+    baseline's) walks out of the bins, it still does. On exact counts it
+    gives the baseline's median."""
+    rng = np.random.RandomState(len(kind))
+    left_bins = 0
+    for trial in range(200):
+        bins = BAD_HISTOGRAMS[kind](rng)
+        rank = (rng.choice([3, 21, 45]) ** 2 + 1) // 2
+        base = 16 * rng.randint(0, 16)
+        below = int(rng.randint(-2000, 2000))
+        m, end, read = _band_query(bins, rank, base, below, bounded=True)
+        assert m is not None and 0 <= m <= 255
+        assert 0 <= end <= 240 and all(0 <= b <= 240 for b in read)
+        assert len(read) <= 2 * (MAX_MOVES + 1)
+        _, _, read_free = _band_query(bins, rank, base, below, bounded=False)
+        left_bins += any(b < 0 or b > 240 for b in read_free)
+    if kind in ("empty", "negative"):
+        assert left_bins, "the unbounded loop should leave the bins on these counts"
+    # exact counts: a k x k window's histogram with its base and below
+    for trial in range(50):
+        k = int(rng.choice([3, 21, 45]))
+        bins = np.bincount(rng.randint(0, 256, k * k), minlength=256)
+        base = 16 * rng.randint(0, 16)
+        below = int(bins[:base].sum())
+        rank = (k * k + 1) // 2
+        want = int(np.argmax(np.cumsum(bins) >= rank))
+        assert _band_query(bins, rank, base, below, bounded=False)[0] == want
+        assert _band_query(bins, rank, base, below, bounded=True)[0] == want
 
 
 @pytest.fixture()

@@ -1,6 +1,8 @@
 // The sliding-histogram walk shared by kernel B (median_residual.cu) and
 // kernel H (median_blur.cu): the exact k x k median of a uint8 plane with
-// BORDER_REPLICATE, for one column of one unit down a strip of rows.
+// BORDER_REPLICATE, for one column of one unit down a strip of rows; and
+// kernel B's kernel on it, `median_residual_kernel`, which kernel L
+// (median_probe.cu) launches in the walk's ablation modes (`Mode`, below).
 //
 // One thread owns one output column and the 256-bin histogram of its
 // window, in shared memory as [bin][thread]. Bins are BITS wide: 16 while
@@ -51,6 +53,25 @@ namespace mh {
 constexpr int kThreads = 32;  // columns per block: one warp
 constexpr int kBins = 256;
 
+// The walk's modes. kBaseline is the walk itself, what kernels B and H
+// compile; the others are kernel L's ablations, each removing one piece of
+// it, wrong by construction (timed, never compared):
+//   kNoWarm    no warm-up rows: each strip starts from zeroed bins;
+//   kNoUpdate  no step down: every row is queried on the warm-up's bins;
+//   kNoAtomic  each bin update a plain load-add-store: two threads share a
+//              32-bit word of 16-bit bins, so their updates race;
+//   kNoQuery   no band query: the median emitted from registers (base - 1
+//              or base, by below >= rank), `base` fixed at 128 so that each
+//              update still makes its compare-add.
+// Their counts may be wrong (a removal from a bin never added to borrows
+// from the neighbouring half; a racing update is lost), and on such counts
+// the baseline's band loop need not end. So in every ablation the loop
+// stops after kMaxMoves band moves, `base` clamped to 0..240: each mode
+// ends, and reads inside the bins, on any input. The baseline's counts are
+// exact, so its loop always ends: it keeps no bound.
+enum Mode { kBaseline = 0, kNoWarm, kNoUpdate, kNoAtomic, kNoQuery };
+constexpr int kMaxMoves = 16;
+
 template <int BITS>
 struct Bins {
   static_assert(BITS == 16 || BITS == 32 || BITS == 64, "bins are 16, 32 or 64 bits");
@@ -77,7 +98,14 @@ struct Bins {
     return static_cast<Word>(w) << shift;
   }
 
-  __device__ __forceinline__ void bump(int v, Word d) { atomicAdd(&col[v * kStride], d); }
+  template <bool ATOMIC = true>
+  __device__ __forceinline__ void bump(int v, Word d) {
+    if constexpr (ATOMIC) {
+      atomicAdd(&col[v * kStride], d);
+    } else {
+      col[v * kStride] += d;
+    }
+  }
 
   // the 16 bins of band b, and their sum
   template <typename Count>
@@ -97,8 +125,8 @@ struct Bins {
 // calling emit(y, median) for each; `smem` is the block's Bins<BITS>::kSmem
 // bytes. All 32 threads of the warp call it (the bins are zeroed
 // together); a thread with c >= W returns after that. Count is signed and
-// holds k * k.
-template <int BITS, typename Count, class Emit>
+// holds k * k. MODE is one of `Mode`.
+template <int BITS, typename Count, int MODE = kBaseline, class Emit>
 __device__ __forceinline__ void walk(const uint8_t* __restrict__ img, int H, int W, int r,
                                      int c, int y0, int y1, Count rank,
                                      typename Bins<BITS>::Word* smem, Emit emit) {
@@ -109,11 +137,12 @@ __device__ __forceinline__ void walk(const uint8_t* __restrict__ img, int H, int
   const int n = min(W - 1, c + r) - j0 + 1;  // in-plane columns of the window
   const Count left = max(0, r - c);
   const Count right = max(0, c + r - (W - 1));
-  int base = 0;  // 16 x the band the last median fell in
+  constexpr bool kBounded = MODE != kBaseline;
+  int base = MODE == kNoQuery ? 128 : 0;  // 16 x the band the last median fell in
   Count below = 0;  // samples of the window below `base`
   // a sample of value v weighted w
   auto put = [&](int v, Count w, Word d) {
-    bins.bump(v, d);
+    bins.template bump<MODE != kNoAtomic>(v, d);
     below += v < base ? w : Count(0);
   };
   // row i of the window, each sample weighted w
@@ -145,44 +174,107 @@ __device__ __forceinline__ void walk(const uint8_t* __restrict__ img, int H, int
       put(__ldg(pb + W - 1), right, bins.delta(right));
     }
   };
-  const Count top = max(0, r - y0);
-  const Count bot = max(0, y0 + r - (H - 1));
-  for (int i = max(0, y0 - r); i <= min(H - 1, y0 + r); ++i) {
-    row(i, Count(1) + (i == 0 ? top : Count(0)) + (i == H - 1 ? bot : Count(0)));
+  if constexpr (MODE != kNoWarm) {
+    const Count top = max(0, r - y0);
+    const Count bot = max(0, y0 + r - (H - 1));
+    for (int i = max(0, y0 - r); i <= min(H - 1, y0 + r); ++i) {
+      row(i, Count(1) + (i == 0 ? top : Count(0)) + (i == H - 1 ? bot : Count(0)));
+    }
   }
   for (int y = y0;; ++y) {
-    // move `base` to the band holding the rank, then find the bin in it
-    Count c16[16];
-    int m = -1;
-    while (m < 0) {
-      const Count s = bins.band(base >> 4, c16);
-      if (rank <= below) {
-        base -= 16;
-        Count lower[16];
-        below -= bins.band(base >> 4, lower);
-      } else if (rank > below + s) {
-        below += s;
-        base += 16;
-      } else {
-        Count acc = below;
-        m = base + 15;
-        bool found = false;
+    int m;
+    if constexpr (MODE == kNoQuery) {
+      m = below >= rank ? base - 1 : base;
+    } else {
+      // move `base` to the band holding the rank, then find the bin in it
+      Count c16[16];
+      m = -1;
+      [[maybe_unused]] int moves = 0;
+      while (m < 0) {
+        const Count s = bins.band(base >> 4, c16);
+        if constexpr (kBounded) {
+          if (moves++ == kMaxMoves) {
+            m = base;
+            break;
+          }
+        }
+        if (rank <= below) {
+          base -= 16;
+          if constexpr (kBounded) base = max(base, 0);
+          Count lower[16];
+          below -= bins.band(base >> 4, lower);
+        } else if (rank > below + s) {
+          below += s;
+          base += 16;
+          if constexpr (kBounded) base = min(base, kBins - 16);
+        } else {
+          Count acc = below;
+          m = base + 15;
+          bool found = false;
 #pragma unroll
-        for (int i = 0; i < 15; ++i) {
-          acc += c16[i];
-          if (!found && acc >= rank) {
-            m = base + i;
-            found = true;
+          for (int i = 0; i < 15; ++i) {
+            acc += c16[i];
+            if (!found && acc >= rank) {
+              m = base + i;
+              found = true;
+            }
           }
         }
       }
     }
     emit(y, m);
     if (y + 1 >= y1) break;
-    const int a = max(0, y - r);
-    const int b = min(H - 1, y + 1 + r);
-    if (a != b) step(a, b);
+    if constexpr (MODE != kNoUpdate) {
+      const int a = max(0, y - r);
+      const int b = min(H - 1, y + 1 + r);
+      if (a != b) step(a, b);
+    }
   }
 }
 
+constexpr int kResidualMaxK = 45;  // k * k < 2048: 16-bit bins always hold k * k
+
 }  // namespace mh
+
+namespace {
+
+// Kernel B: 255 where |x - median_k(x)| > thr on the rows [row_lo, row_hi)
+// of each unit of x [U, H, W], 0 on its other rows, for odd
+// k <= mh::kResidualMaxK, with 16-bit bins. Its grid is (ceil(W / 32),
+// ceil(H / strip), U) blocks of one warp: block (x, s, u) walks ROI rows
+// row_lo + s strip.. of unit u and writes the zeros of rows
+// s strip..(s + 1) strip - 1 outside [row_lo, row_hi), so the grid covers
+// every row without the host reading the row bounds. B (median_residual.cu)
+// launches it at mh::kBaseline, kernel L (median_probe.cu) in every mode;
+// each file compiles its own copy (internal linkage).
+template <int MODE = mh::kBaseline>
+__global__ void __launch_bounds__(mh::kThreads)
+median_residual_kernel(const uint8_t* __restrict__ x, const int* __restrict__ row_lo,
+                       const int* __restrict__ row_hi, uint8_t* __restrict__ out, int H,
+                       int W, int k, int thr, int strip) {
+  using Bins = mh::Bins<16>;
+  __shared__ Bins::Word smem[Bins::kSmem / sizeof(Bins::Word)];
+  const int u = blockIdx.z;
+  const int c = blockIdx.x * mh::kThreads + threadIdx.x;
+  const size_t off = static_cast<size_t>(u) * H * W;
+  const uint8_t* img = x + off;
+  uint8_t* o = out + off;
+  const int lo = max(row_lo[u], 0);
+  const int hi = min(row_hi[u], H);
+  const int z0 = blockIdx.y * strip;
+  if (c < W) {
+    for (int y = z0; y < min(H, z0 + strip); ++y) {
+      if (y < lo || y >= hi) o[static_cast<size_t>(y) * W + c] = 0;
+    }
+  }
+  if (hi - lo <= z0) return;  // no ROI row left for this strip (block-uniform)
+  const int y0 = lo + z0;
+  const int y1 = min(hi, y0 + strip);
+  mh::walk<16, int, MODE>(img, H, W, k / 2, c, y0, y1, (k * k + 1) / 2, smem,
+                          [&](int y, int m) {
+                            const size_t i = static_cast<size_t>(y) * W + c;
+                            o[i] = abs(static_cast<int>(img[i]) - m) > thr ? 255 : 0;
+                          });
+}
+
+}  // namespace

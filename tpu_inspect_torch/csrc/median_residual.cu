@@ -12,8 +12,9 @@
 // unit are written 0 by the same launch (the defect path ANDs the result
 // with the ROI, whose rows those are not).
 //
-// Design: the sliding-histogram walk of median_hist.cuh. A block is one
-// warp of 32 adjacent columns of one unit (16 KB of bins: 14 blocks an
+// Design: the sliding-histogram walk of median_hist.cuh, which holds this
+// kernel (kernel L launches it in ablation modes). A block is
+// one warp of 32 adjacent columns of one unit (16 KB of bins: 14 blocks an
 // SM), walking one strip of S ROI rows; block (x, s, u) walks rows
 // row_lo + s S.. of unit u and writes the zeros of rows s S..(s + 1) S - 1
 // outside [row_lo, row_hi), so the grid (ceil(H / S) strips) covers every
@@ -29,8 +30,7 @@
 // step plus the 441-sample warm-up over 32 rows (about 56), each one L1
 // byte read, one shared atomic and a compare-add, then 16 shared reads
 // for the query; the per-pixel window design it replaced read 441 window
-// bytes and made 882 compares a pixel (median_window.cuh, which kernel L
-// keeps as its baseline).
+// bytes and made 882 compares a pixel.
 
 #include <cstdint>
 
@@ -38,49 +38,15 @@
 
 #include "median_hist.cuh"
 
-namespace {
-
-constexpr int kMaxK = 45;  // k * k < 2048, the wrapper's bound
-
-__global__ void __launch_bounds__(mh::kThreads)
-median_residual_kernel(const uint8_t* __restrict__ x, const int* __restrict__ row_lo,
-                       const int* __restrict__ row_hi, uint8_t* __restrict__ out, int H,
-                       int W, int k, int thr, int strip) {
-  using Bins = mh::Bins<16>;
-  __shared__ Bins::Word smem[Bins::kSmem / sizeof(Bins::Word)];
-  const int u = blockIdx.z;
-  const int c = blockIdx.x * mh::kThreads + threadIdx.x;
-  const size_t off = static_cast<size_t>(u) * H * W;
-  const uint8_t* img = x + off;
-  uint8_t* o = out + off;
-  const int lo = max(row_lo[u], 0);
-  const int hi = min(row_hi[u], H);
-  const int z0 = blockIdx.y * strip;
-  if (c < W) {
-    for (int y = z0; y < min(H, z0 + strip); ++y) {
-      if (y < lo || y >= hi) o[static_cast<size_t>(y) * W + c] = 0;
-    }
-  }
-  if (hi - lo <= z0) return;  // no ROI row left for this strip (block-uniform)
-  const int y0 = lo + z0;
-  const int y1 = min(hi, y0 + strip);
-  mh::walk<16, int>(img, H, W, k / 2, c, y0, y1, (k * k + 1) / 2, smem, [&](int y, int m) {
-    const size_t i = static_cast<size_t>(y) * W + c;
-    o[i] = abs(static_cast<int>(img[i]) - m) > thr ? 255 : 0;
-  });
-}
-
-}  // namespace
-
 extern "C" int tik_median_residual(const void* x, const void* row_lo,
                                    const void* row_hi, void* out, int U, int H,
                                    int W, int k, int thr, int strip, void* stream) {
-  if (k < 1 || k > kMaxK || (k & 1) == 0 || strip < 1) {
+  if (k < 1 || k > mh::kResidualMaxK || (k & 1) == 0 || strip < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (U > 0 && H > 0 && W > 0) {
     const dim3 grid((W + mh::kThreads - 1) / mh::kThreads, (H + strip - 1) / strip, U);
-    median_residual_kernel<<<grid, mh::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    median_residual_kernel<><<<grid, mh::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), static_cast<const int*>(row_lo),
         static_cast<const int*>(row_hi), static_cast<uint8_t*>(out), H, W, k, thr, strip);
   }

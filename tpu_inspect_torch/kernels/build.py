@@ -76,8 +76,8 @@ _SIGNATURES = {
     # x, thr, prog, roi_prog, zone, seg_out, seg_stats, roi_out, roi_stats,
     # scratch, scratch words, err, U, H, W, stream
     "tik_seg_roi_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _P),
-    # x, row_lo, row_hi, out, U, H, W, k, thr, mode, tile_w, tile_h, stream
-    "tik_median_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, row_lo, row_hi, out, U, H, W, k, thr, mode, strip rows, stream
+    "tik_median_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, hist, U, H*W, stream
     "tik_histogram": (_P, _P, _I, _L, _P),
     # hist, thr, U, scale, stream
