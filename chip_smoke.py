@@ -114,7 +114,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    time), the native decode per frame, the median probe's table (each
    ablation's share of the baseline), and a
    ``torch.profiler`` breakdown (:mod:`tpu_inspect_torch.utils.profile`) of
-   each combo, the chain and the stream.
+   each combo, the chain and the stream;
+6. the benchmark runner (:mod:`tpu_inspect_torch.bench`) as a user runs it:
+   ``python -m tpu_inspect_torch.cli bench`` and ``python -m
+   tpu_inspect_torch.bench config1 | config1defect | stream``, each in its
+   own process, its diagnostics and metric lines printed here; any non-zero
+   exit, missing metric, null value or error fails the script; then one
+   chained window of the headline form and one of config1defect dispatched
+   here under ``torch.cuda.set_sync_debug_mode("error")``: the timed loops
+   wait for the card nowhere but at their one read.
 
 The second-to-last lines are the card line and one JSON object with the
 per-kernel results; the last line is the JSON status object. Without CUDA,
@@ -580,6 +588,84 @@ def sharded_phase(work, frames, frame_refs, stream_anchors, seg, dparams, card):
     return launches_by_path, walls
 
 
+# ---- the benchmark runner (tpu_inspect_torch.bench) ---------------------------
+
+# each form as a user runs it: the command and the metrics it prints
+RUNNER_FORMS = (
+    (("-m", "tpu_inspect_torch.cli", "bench"), ("full_grid_4096x3000_seg_defect_ms_per_image",)),
+    (("-m", "tpu_inspect_torch.bench", "config1"), ("single_unit_4096x3000_segmentation_ms",)),
+    (("-m", "tpu_inspect_torch.bench", "config1defect"), ("single_unit_4096x3000_seg_defect_ms",)),
+    (("-m", "tpu_inspect_torch.bench", "stream"), ("stream_4096x3000_device_ms_per_frame",
+                                                  "stream_4096x3000_wall_ms_per_frame")),
+)
+RUNNER_SYNC_PASSES = 4  # passes of each chained window under the sync check
+
+
+def runner_phase(work, seg, dparams, card) -> dict:
+    """Phase 6: every form of the benchmark runner as a subprocess (its
+    diagnostics and metric lines printed here), each metric line parsed and
+    required non-null without an error, every process required to exit 0;
+    then one chained window of the headline form and one of config1defect
+    dispatched in this process under ``set_sync_debug_mode("error")``.
+    Returns {metric: its line}."""
+    import torch
+
+    from tpu_inspect_torch import bench
+    from tpu_inspect_torch.kernels import LAUNCHES, build, error_flag, reset_launches
+
+    lines = {}
+    for argv, metrics in RUNNER_FORMS:
+        form = " ".join(argv[1:])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, capture_output=True, text=True,
+                              timeout=400)
+        for line in proc.stderr.strip().splitlines():
+            say(f"phase 6: {form} | {line}")
+        if proc.returncode != 0:
+            fail(f"runner form {form} exited {proc.returncode}")
+        for line in proc.stdout.strip().splitlines():
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                fail(f"runner form {form} printed a line that is not JSON: {line!r}")
+            if rec.get("value") is None or "error" in rec:
+                fail(f"runner form {form}: {line}")
+            lines[rec["metric"]] = rec
+            say(f"phase 6: {form} | {line}")
+        missing = [m for m in metrics if m not in lines]
+        if missing:
+            fail(f"runner form {form} printed no line for {missing}")
+        say(f"phase 6: {form} took {time.perf_counter() - t0:.1f} s (process wall)")
+
+    dev = torch.device("cuda")
+    image = torch.from_numpy(work["image"]).to(dev)
+    origins = torch.from_numpy(work["origins"]).to(dev)
+    windows = (
+        ("headline", lambda err: bench.image_step(origins, work["unit_hw"], seg, dparams,
+                                                  work["exclusions"], err), image),
+        ("config1defect", lambda err: bench.unit_step(seg, dparams, err), image[None]),
+    )
+    for label, make_step, x in windows:
+        flag = error_flag(dev)
+        int(bench.chain(make_step(flag), x, 1)[0])
+        flag = error_flag(dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            acc, _ = bench.chain(make_step(flag), x, RUNNER_SYNC_PASSES)
+        except RuntimeError as e:
+            fail(f"runner sync check ({label}): the chained window waited for the card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        total = int(acc)
+        build.check_bounded(f"runner sync check ({label})", flag)
+        say(f"phase 6: {label}'s chained window of {RUNNER_SYNC_PASSES} passes dispatched "
+            f"under set_sync_debug_mode('error') without a wait (accumulator {total}), "
+            f"launches {dict(LAUNCHES)} on {card}")
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -600,6 +686,7 @@ def main() -> int:
     from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain, candidate_mask
     from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
     from tpu_inspect_torch.ops.canny import canny_planes, canny_u8
+    from tpu_inspect_torch.ops.contour import fill_regions
     from tpu_inspect_torch.ops.cc import (
         component_stats,
         component_stats_plain,
@@ -731,13 +818,13 @@ def main() -> int:
     ).to(torch.int32)).contiguous()
     m_w = candidate_mask(median_residual_mask(whole, k, t_res, row_lo_w, row_hi_w), roi_w, True)
     free_mw = (~m_w).contiguous()
-    fill_w, top_w, ext_w = engine._fill_regions(m_w)
+    fill_w, top_w, ext_w = fill_regions(m_w)
     fill_plane_w = (~ext_w).contiguous()
     lin_w = torch.arange(m_w[0].numel(), dtype=torch.int32, device=dev).reshape(m_w.shape)
     seed_w = (m_w & (fill_w == lin_w)).contiguous()
     # the Canny form of the defect tail on the same ROI
     m_cw = candidate_mask(canny_u8(whole, lo_c, hi_c), roi_w, False)
-    regions_cw = engine._fill_regions(m_cw)
+    regions_cw = fill_regions(m_cw)
     say(f"phase 3: whole-image planes 1x3000x4096: seg mask {int(seg_fill_w.sum())} px, "
         f"ROI {int(roi_st_w[0, 0])} px, candidates {int(m_w.sum())} px (Canny "
         f"{int(m_cw.sum())} px)")
@@ -1018,7 +1105,7 @@ def main() -> int:
         zone_r = torch.from_numpy(
             (np.random.RandomState(hh * ww).rand(hh, ww) > 0.8).astype(np.uint8)).to(dev)
         lab_r = label_components(full_b)
-        regions_r = engine._fill_regions(full_b)
+        regions_r = fill_regions(full_b)
         cases = [
             ("seg_tail", "seg form", lambda f: f(gray, close_open_stages(3), fill=True, thr=thr_r)),
             ("seg_tail", "morph 7", lambda f: f(gray, close_open_stages(7), fill=True, thr=thr_r)),
@@ -1136,7 +1223,7 @@ def main() -> int:
     tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
              "tests/test_torch_median_hist.py", "tests/test_torch_cluster.py"]
     selected = ("otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist "
-                "or mask_chain or cc_stats_ or test_torch_cluster")
+                "or mask_chain or cc_stats_ or test_torch_cluster or public_name")
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
          "--noconftest", "-p", "no:cacheprovider"],
@@ -1916,6 +2003,10 @@ def main() -> int:
     tmp.cleanup()
 
     mark("phase 5 ends")
+
+    # ---- phase 6: the benchmark runner ----------------------------------
+    runner_lines = runner_phase(work, seg, dparams, card)
+    mark("phase 6 ends")
     sources = {
         "seg_tail": ("tpu_inspect_torch/csrc/seg_tail.cu", "tpu_inspect/ops/fused_pallas.py:145"),
         "median_residual": ("tpu_inspect_torch/csrc/median_residual.cu",
@@ -1997,6 +2088,8 @@ def main() -> int:
         entries.append(entry)
     build.check_bounded("phase 5", bound_flag)
     say(f"phase 5: ms per call by path {json.dumps(e2e)} on {card}")
+    say(f"phase 6: the runner's metrics (ms) "
+        f"{json.dumps({m: r['value'] for m, r in runner_lines.items()})} on {card}")
     say(card)
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ On the CPU (the JAX package imported inside those tests only, so that the
   per-band partials, held against the JAX package's
   ``cc.largest_component_sums`` over random band heights;
 - G's slot (the 2x2 block of a region's label pixel) is one slot per fill
-  region of ``engine._fill_regions``, on random planes.
+  region of ``ops.contour.fill_regions``, on random planes.
 
 On the card (``cuda``): J on components crossing one and several seams,
 diagonal joins exactly at a seam, an equal-area tie between roots in
@@ -27,12 +27,12 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_inspect_torch import engine as teng
 from tpu_inspect_torch.kernels import LAUNCHES, reset_launches
 from tpu_inspect_torch.ops._contour_table import CONTOUR_TABLE_X2
 from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
 from tpu_inspect_torch.ops import cc
 from tpu_inspect_torch.ops.cc import largest_component, largest_component_sums
+from tpu_inspect_torch.ops.contour import fill_regions
 
 KCLUSTER = 16  # label_stats.cu: kMaxCluster, one unit's cluster on an H100
 
@@ -214,12 +214,12 @@ def test_band_model_tie_across_bands():
 
 def test_blob_select_slot_is_one_per_region():
     """G's slot, the 2x2 block of a region's label pixel, never holds two
-    fill regions of ``engine._fill_regions`` (8-connected components of
+    fill regions of ``ops.contour.fill_regions`` (8-connected components of
     ~ext: a block's pixels are 8-adjacent)."""
     rng = np.random.RandomState(31)
     for h, w, p in [(37, 53, 0.5), (64, 41, 0.35), (31, 33, 0.6), (1, 19, 0.5), (45, 1, 0.5)]:
         m = torch.from_numpy(rng.rand(2, h, w) > p)
-        fill, _, ext = teng._fill_regions(m)
+        fill, _, ext = fill_regions(m)
         wb = (w + 1) // 2
         for u in range(2):
             labels = fill[u][~ext[u]].unique().numpy()
@@ -310,7 +310,7 @@ def _contrib_abs_sum(top, ext):
 
 def _g_equal(m_np, cuda, max_x2, min_x2=6):
     m = torch.from_numpy(np.ascontiguousarray(m_np)).to(cuda)
-    fill, top, ext = teng._fill_regions(m)
+    fill, top, ext = fill_regions(m)
     mx = torch.tensor(max_x2, dtype=torch.int32, device=cuda)
     reset_launches()
     got = blob_select(fill, top, ext, mx, min_x2=min_x2)

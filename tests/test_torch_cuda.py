@@ -19,6 +19,7 @@ from tpu_inspect_torch.kernels import LAUNCHES, reset_launches
 from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain
 from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
 from tpu_inspect_torch.ops.canny import canny_planes, canny_u8
+from tpu_inspect_torch.ops.contour import fill_regions
 from tpu_inspect_torch.ops.cc import (
     component_stats,
     component_stats_plain,
@@ -206,7 +207,7 @@ def test_blob_select_matches_plain(cuda, shape):
     fg[-1, 4:24, 4:24] = True  # a ring holding a nested blob
     fg[-1, 7:21, 7:21] = False
     fg[-1, 11:16, 11:16] = True
-    fill_labels, top, ext = teng._fill_regions(fg)
+    fill_labels, top, ext = fill_regions(fg)
     max_x2 = torch.tensor([50, 4000, 722][: shape[0]], dtype=torch.int32, device=cuda)
     for min_x2 in (0, 6, 32):
         reset_launches()
@@ -235,7 +236,7 @@ def test_whole_plane_kernels_match_plain(cuda):
         mask, stats = component_stats(labels, plane)
         _assert_equal((mask, stats), component_stats_plain(labels, plane))
     assert stats[0, 1] > 2**31
-    fill_labels, top, ext = teng._fill_regions(fg)
+    fill_labels, top, ext = fill_regions(fg)
     max_x2 = torch.tensor([2 * 60_000], dtype=torch.int32, device=cuda)
     out, area = blob_select(fill_labels, top, ext, max_x2, min_x2=40)
     _assert_equal((out, area), blob_select_plain(fill_labels, top, ext, max_x2, min_x2=40))
@@ -678,3 +679,62 @@ def test_cc_stats_label_outside_the_plane_sets_the_flag(cuda):
     assert int(err.item()) == 3
     with pytest.raises(RuntimeError, match="flag 3"):
         component_stats(labels, fg)
+
+
+# the six public names that call ported kernels, and the kernels each
+# launches on the card (component_areas is a torch scatter)
+_PUBLIC = {
+    "filter_and_select": ("blob_filter",),
+    "filter_and_select whole": ("propagate", "label", "blob_select"),
+    "select_blobs": ("propagate",),
+    "otsu_binary_inv": ("otsu",),
+    "morph_close": ("morph",),
+    "component_areas": (),
+    "largest_component_sums_tiled": ("cc_stats",),
+}
+
+
+@pytest.mark.parametrize("name", list(_PUBLIC))
+def test_public_name_matches_cpu(cuda, name, monkeypatch):
+    """``contour.filter_and_select`` (kernel C, and with ``blob_filter_fits``
+    false kernels D, E, D and G), ``contour.select_blobs``,
+    ``threshold.otsu_binary_inv``, ``morphology.morph_close``,
+    ``cc.component_areas`` and ``cc.largest_component_sums_tiled`` on the
+    card against ``device="cpu"``, exact, dtypes included: random blobs, an
+    empty and a full unit; each launches its kernels."""
+    from tpu_inspect_torch.ops import blob, cc, contour, morphology, threshold
+    from tpu_inspect_torch.synthetic import random_blob_mask
+
+    if name == "filter_and_select whole":
+        monkeypatch.setattr(blob, "blob_filter_fits", lambda h, w: False)
+    fg = np.stack([random_blob_mask(61, 67, seed=s, n_blobs=6) > 0 for s in range(3)]
+                  + [np.zeros((61, 67), bool), np.ones((61, 67), bool)])
+    x = np.random.RandomState(31).randint(0, 256, fg.shape, dtype=np.uint8)
+    x[3], x[4] = 0, 255
+    max_x2 = np.array([60, 400, 2000, 100, 10_000], np.int32)
+
+    def run(dev):
+        f, xx = torch.from_numpy(fg).to(dev), torch.from_numpy(x).to(dev)
+        if name.startswith("filter_and_select"):
+            return contour.filter_and_select(f, 8, torch.from_numpy(max_x2).to(dev))
+        if name == "select_blobs":
+            ana = contour.analyze_blobs(f)
+            return contour.select_blobs(ana, (ana.contour_area_x2 >= 8)
+                                        & (ana.contour_area_x2 <= 400))
+        if name == "otsu_binary_inv":
+            return threshold.otsu_binary_inv(xx)
+        if name == "morph_close":
+            return morphology.morph_close(f.to(torch.uint8) * 255, morphology.ellipse_se(5))
+        if name == "component_areas":
+            return cc.component_areas(cc.label_components(f), f)
+        return cc.largest_component_sums_tiled(f, cc.label_components(f))
+
+    reset_launches()
+    got = run(cuda)
+    launches = dict(LAUNCHES)
+    ref = run("cpu")
+    got, ref = (t if isinstance(t, tuple) else (t,) for t in (got, ref))
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.device.type == "cuda" and g.dtype == r.dtype and torch.equal(g.cpu(), r)
+    assert all(launches[k] >= 1 for k in _PUBLIC[name]), launches

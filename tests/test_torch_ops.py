@@ -246,7 +246,7 @@ def test_engine_import_loads_no_jax():
         "tpu_inspect_torch.utils.profile, tpu_inspect_torch.tools.median_probe, "
         "tpu_inspect_torch.tools.kernel_bench, tpu_inspect_torch.parallel, "
         "tpu_inspect_torch.parallel.launch, tpu_inspect_torch.parallel.mesh, "
-        "tpu_inspect_torch.parallel.strips; "
+        "tpu_inspect_torch.parallel.strips, tpu_inspect_torch.bench; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_inspect' or m.startswith('tpu_inspect.') "
         "or m == 'cv2' or m.startswith('cv2.')]; "
@@ -586,3 +586,90 @@ def test_result_invariant_keywords_of_the_reference():
             got.numpy(), np.asarray(jmedian.median_blur_u8(jnp.asarray(x), 5, rows_per_step=rows)))
     with pytest.raises(TypeError):
         cc.label_components(_t(fg), "rc", None)
+
+
+def test_otsu_binary_inv_matches_reference():
+    """``threshold.otsu_binary_inv`` (the Otsu kernel's threshold, then the
+    compare) against the JAX package's, dtypes included: random, empty (all
+    0), full (all 255), two-level and mold units."""
+    rng = np.random.RandomState(21)
+    x = rng.randint(0, 256, (6, 24, 31), dtype=np.uint8)
+    x[1] = 0
+    x[2] = 255
+    x[3] = np.where(rng.rand(24, 31) > 0.5, 40, 200)
+    mold = make_mold_image(sample_grid_params(), (300, 400), seed=2)
+    x[4], x[5] = mold[232:256, 251:282], mold[260:284, 300:331]
+    got = threshold.otsu_binary_inv(_t(x)).numpy()
+    ref = np.asarray(jthr.otsu_binary_inv(jnp.asarray(x)))
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("se_name", ["ellipse3", "ellipse7", "rect5", "cross3"])
+def test_morph_close_matches_reference(se_name):
+    """``morphology.morph_close`` (dilate then erode in one launch of kernel
+    I) against the JAX package's on 0/255 planes: random, edge-touching,
+    empty and full units."""
+    se = {"ellipse3": jmorph.ellipse_se(3), "ellipse7": jmorph.ellipse_se(7),
+          "rect5": np.ones((5, 5), np.uint8),
+          "cross3": np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], np.uint8)}[se_name]
+    rng = np.random.RandomState(13)
+    x = ((rng.rand(4, 30, 33) > 0.55) * 255).astype(np.uint8)
+    x[1, :, -1] = 255  # fg on the right/bottom edges
+    x[1, -1, :] = 255
+    x[2] = 0
+    x[3] = 255
+    got = morphology.morph_close(_t(x), se).numpy()
+    ref = np.asarray(jmorph.morph_close(jnp.asarray(x), se))
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_component_areas_matches_reference():
+    """``cc.component_areas`` (a torch scatter) against the JAX package's on
+    its own labels: random blobs, two equal-area components, empty and
+    full units."""
+    rng = np.random.RandomState(17)
+    fg = rng.rand(4, 22, 27) > 0.55
+    fg[1] = False
+    fg[1, 2:5, 3:6] = fg[1, 10:13, 20:23] = True  # a tie at area 9
+    fg[2] = False
+    fg[3] = True
+    labels = cc.label_components(_t(fg))
+    got = cc.component_areas(labels, _t(fg)).numpy()
+    jfg = jnp.asarray(fg)
+    ref = np.asarray(jcc.component_areas(jcc.label_components(jfg), jfg))
+    assert got.dtype == ref.dtype == np.int32
+    np.testing.assert_array_equal(got, ref)
+    assert sorted(got[1][got[1] > 0]) == [9, 9] and got[3].max() == 22 * 27
+
+
+def _public_names(path: Path) -> set[str]:
+    """Module-level public functions, classes and assigned names of a file."""
+    import ast
+
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_module_names_cover_jax_package():
+    """Every module of the JAX package has a module of the same name in the
+    port holding its public names, but the deliberate non-ports: the
+    ``*_pallas.py`` modules (their kernels live in ``ops/*.py`` and
+    ``csrc/``), the TPU trace parser ``utils/xprof.py`` and the TPU
+    compile-failure switch ``ops/common.fused_disabled``."""
+    jax_root, port_root = ROOT / "tpu_inspect", ROOT / "tpu_inspect_torch"
+    missing = {}
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root)
+        if rel.name.endswith("_pallas.py") or str(rel) == "utils/xprof.py":
+            continue
+        names = _public_names(path) - _public_names(port_root / rel)
+        if names:
+            missing[str(rel)] = sorted(names)
+    assert missing == {"ops/common.py": ["fused_disabled"]}

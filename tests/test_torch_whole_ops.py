@@ -30,8 +30,13 @@ from tpu_inspect.ops import hole_fill as jfill
 from tpu_inspect.synthetic import random_blob_mask
 
 from tpu_inspect_torch import engine as teng
+from tpu_inspect_torch.ops import blob, contour
 from tpu_inspect_torch.ops.blob_select import blob_select
-from tpu_inspect_torch.ops.cc import component_stats, label_components
+from tpu_inspect_torch.ops.cc import (
+    component_stats,
+    label_components,
+    largest_component_sums_tiled,
+)
 from tpu_inspect_torch.ops.median import median_residual_mask
 
 _ORIG_PALLAS_CALL = pl.pallas_call
@@ -234,3 +239,86 @@ def test_route_kernels_reject_bad_planes():
         blob_select(lab, fg, fg, max_x2.to(torch.int64), min_x2=0)
     out, area = blob_select(lab, fg, ~fg, max_x2, min_x2=0)
     assert out.dtype == torch.uint8 and not out.any() and area.tolist() == [0]
+
+
+@pytest.mark.parametrize("planes", ["blobs", "ties", "wide"])
+def test_largest_component_sums_tiled_matches_jax(planes):
+    """``cc.largest_component_sums_tiled`` (kernel F on given labels) under
+    the JAX package's contract, dtypes included, against its whole-image
+    function on its sort path: random blobs across tiles, the block-raster
+    ties with a full and an empty unit, and a 2x40000 plane whose
+    coordinate sums take int64 (``max(H, W) * H * W >= 2**31``). The tile
+    shape is the JAX package's to choose; the port ignores it."""
+    if planes == "wide":
+        fg = np.zeros((1, 2, 40000), bool)
+        fg[0, :, 30000:] = True
+        fg[0, 1, 100:160] = True
+        tile_hw = (2, 2000)
+    else:
+        fg = _stat_planes() if planes == "blobs" else _tie_planes()
+        tile_hw = (16, 20)
+    fg_t = torch.from_numpy(fg)
+    got = largest_component_sums_tiled(fg_t, label_components(fg_t), tile_hw=tile_hw,
+                                       use_tables=True)
+    jfg = jnp.asarray(fg)
+    tiled = functools.partial(jcc.largest_component_sums_tiled, tile_hw=tile_hw,
+                              use_tables=False)
+    ref = jax.jit(tiled)(jfg, jcc.label_components(jfg))
+    assert len(got) == len(ref) == 5
+    for g, r in zip(got, ref):
+        r = np.asarray(r)
+        assert g.numpy().dtype == r.dtype
+        np.testing.assert_array_equal(g.numpy(), r)
+    assert got[2].dtype == (torch.int64 if planes == "wide" else torch.int32)
+    big = (2, 32768, 32768)  # u*h*w = 2**31: views of one element, nothing allocated
+    with pytest.raises(ValueError, match="u\\*h\\*w"):
+        largest_component_sums_tiled(torch.zeros((), dtype=torch.bool).expand(big),
+                                     torch.zeros((), dtype=torch.int32).expand(big))
+
+
+def _select_planes():
+    """_blob_planes' candidates and bounds with an empty and a full unit."""
+    cand, max_x2 = _blob_planes()
+    fg = np.concatenate([cand > 0, np.zeros((1, 40, 44), bool), np.ones((1, 40, 44), bool)])
+    return fg, np.concatenate([max_x2, [100, 10_000]]).astype(np.int32)
+
+
+@pytest.mark.parametrize("route", ["kernel C", "fill regions and kernel G"])
+def test_filter_and_select_matches_jax(route, monkeypatch):
+    """``contour.filter_and_select`` against the JAX package's: kernel C's
+    plain version, and with ``blob_filter_fits`` false the whole-image
+    composition (kernels D, E, D, then G); nested blobs, 2x contour areas
+    exactly at min_x2 (8) and max_x2, edge-touching blobs, random blobs, an
+    empty unit and a full one (its 2x area 3354 kept)."""
+    if route != "kernel C":
+        monkeypatch.setattr(blob, "blob_filter_fits", lambda h, w: False)
+    fg, max_x2 = _select_planes()
+    out, found = contour.filter_and_select(torch.from_numpy(fg), 8, torch.from_numpy(max_x2))
+    select = jax.jit(functools.partial(jcontour.filter_and_select, min_area_x2=8))
+    ref, ref_found = (np.asarray(r) for r in select(jnp.asarray(fg), max_area_x2=jnp.asarray(max_x2)))
+    assert out.dtype == torch.bool and found.dtype == torch.bool
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(found.numpy(), ref_found)
+    assert found.tolist() == [True, True, True, False, True]
+    # a plain list of bounds is taken as the JAX package takes an array
+    out2, _ = contour.filter_and_select(torch.from_numpy(fg), 8, max_x2.tolist())
+    assert torch.equal(out, out2)
+
+
+def test_select_blobs_matches_jax():
+    """``contour.select_blobs`` (kernel D seeded by the kept roots) against
+    the JAX package's, each on its own package's blob analysis, the kept
+    roots those with 8 <= 2x area <= 400."""
+    from tpu_inspect_torch.ops.contour import analyze_blobs
+
+    fg, _ = _select_planes()
+    ana = analyze_blobs(torch.from_numpy(fg))
+    jana = jcontour.analyze_blobs(jnp.asarray(fg))
+    a2 = np.asarray(jana.contour_area_x2)
+    np.testing.assert_array_equal(ana.contour_area_x2.numpy(), a2)
+    keep = (a2 >= 8) & (a2 <= 400)
+    got = contour.select_blobs(ana, torch.from_numpy(keep))
+    ref = np.asarray(jcontour.select_blobs(jana, jnp.asarray(keep)))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert ref.any() and not ref.all()

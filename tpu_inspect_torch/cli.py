@@ -8,6 +8,7 @@ outputs, on ``--device cuda`` (the default) or ``--device cpu``::
   python -m tpu_inspect_torch.cli gridgen  --base 251,232,316,315 --units 4x6 \\
       --blocks 2x1 --unit-space 133,136 --block-space 252,0 --out grid.json
   python -m tpu_inspect_torch.cli stream   --grid grid.json frame0.tif frame1.tif ...
+  python -m tpu_inspect_torch.cli bench
   python -m tpu_inspect_torch.cli profile
   python -m tpu_inspect_torch.cli doctor
   python -m tpu_inspect_torch.cli ui --grid grid.json mold.tif
@@ -16,8 +17,10 @@ outputs, on ``--device cuda`` (the default) or ``--device cpu``::
 recorded) and later images as production captures (exclusions re-aligned),
 matching the reference's multi-image workflow, and prints one JSON report.
 `stream` is the deployment-shaped flow: the decode-ahead native loader and
-pipelined device dispatch, one JSONL verdict line per frame. The JAX
-package's `bench` (its ``bench.py``) has no counterpart here yet.
+pipelined device dispatch, one JSONL verdict line per frame. `bench` runs
+the headline form of the port's benchmark runner
+(:func:`tpu_inspect_torch.bench.main`) on the card; like the JAX package's,
+it takes no device flag.
 """
 
 from __future__ import annotations
@@ -261,6 +264,12 @@ def cmd_profile(args):
         print(f"  {ms:8.3f} ms  x{count:g}  {key}")
 
 
+def cmd_bench(args):
+    from tpu_inspect_torch import bench
+
+    bench.main()
+
+
 def cmd_ui(args):
     from tpu_inspect_torch.ui.server import main as ui_main
 
@@ -346,6 +355,9 @@ def main(argv=None):
     _add_param_flags(s)
     _add_device_flag(s)
     s.set_defaults(fn=cmd_stream)
+
+    b = sub.add_parser("bench", help="run the standard benchmark on the card")
+    b.set_defaults(fn=cmd_bench)
 
     pr = sub.add_parser(
         "profile", help="device-profile the standard workload (per-kernel table)"

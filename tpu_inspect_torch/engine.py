@@ -72,8 +72,7 @@ from tpu_inspect_torch.ops.blob_select import blob_select
 from tpu_inspect_torch.ops.canny import canny_u8
 from tpu_inspect_torch.ops.cc import component_stats, label_components
 from tpu_inspect_torch.ops.common import as_odd
-from tpu_inspect_torch.ops.contour import analyze_blobs
-from tpu_inspect_torch.ops.flood import propagate
+from tpu_inspect_torch.ops.contour import analyze_blobs, fill_regions
 from tpu_inspect_torch.ops.fused import seg_roi_tail, seg_tail, seg_tail_fits, tail_mask
 from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
 from tpu_inspect_torch.ops.hole_fill import exterior_background
@@ -271,28 +270,14 @@ def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None, *, err=No
     return out.to(torch.uint8) * 255, stats
 
 
-def _fill_regions(m: torch.Tensor, err=None):
-    """(fill labels int32, top-level blob pixels bool, exterior bool) of a
-    [U, H, W] bool candidate plane: kernel D for the exterior; kernel E for
-    the fill labels; kernel D again, seeded with each fill region's
-    raster-first pixel (always a pixel of its top-level blob), for the
-    top-level blobs through the candidates, 8-connected
-    (``contour.py:596-602``). ``err`` as for :func:`_whole_tail`."""
-    u, h, w = m.shape
-    ext = exterior_background(m, err=err)
-    fill_labels = label_components(~ext, err=err)
-    lin = torch.arange(h * w, dtype=torch.int32, device=m.device).reshape(1, h, w)
-    top = propagate(m & (fill_labels == lin), m, conn8=True, err=err)
-    return fill_labels, top, ext
-
-
 def _whole_blobs(fg, max_x2, *, min_x2: int, roi=None, pre_open=False, err=None):
     """:func:`ops.blob.blob_filter`'s contract on the whole-image route (the
     port of ``contour.filter_and_select`` at whole-image size): the fill
-    regions (:func:`_fill_regions`), then kernel G for the Green's filter
-    and the paint. ``err`` as for :func:`_whole_tail`."""
+    regions (:func:`tpu_inspect_torch.ops.contour.fill_regions`), then
+    kernel G for the Green's filter and the paint. ``err`` as for
+    :func:`_whole_tail`."""
     m = candidate_mask(fg, roi, pre_open, chain=morph_chain)
-    return blob_select(*_fill_regions(m, err), max_x2, min_x2=min_x2, err=err)
+    return blob_select(*fill_regions(m, err), max_x2, min_x2=min_x2, err=err)
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:

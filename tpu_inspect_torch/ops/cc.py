@@ -10,7 +10,9 @@ background, int32), and the largest component with OpenCV's tie-break.
 and runs :func:`label_components_plain` for CPU tensors;
 :func:`component_stats` (kernel F, ``csrc/cc_stats.cu``) and
 :func:`largest_component_sums` (kernel J, ``csrc/label_stats.cu``) do the
-same with :func:`component_stats_plain` and :func:`largest_component`.
+same with :func:`component_stats_plain` and :func:`largest_component`;
+:func:`largest_component_sums_tiled` is kernel F under the JAX package's
+whole-image contract, and :func:`component_areas` a torch scatter.
 
 Labels come from a min-label fixpoint: per iteration, a 3x3 neighbourhood
 min (8-connectivity only) and segmented cummin sweeps along rows and
@@ -220,6 +222,42 @@ def component_stats(labels: torch.Tensor, fg: torch.Tensor, *, err=None):
     if err is None:
         build.check_bounded("component_stats", flag)
     return mask.view(torch.bool), stats
+
+
+def component_areas(labels: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
+    """Per-root pixel counts of :func:`label_components`' ``labels`` over
+    ``fg``: [U, H*W] int32, 0 for non-roots. One torch ``scatter_add_``
+    with a spill bucket for the background (XLA ops in the JAX package:
+    no kernel)."""
+    u, h, w = labels.shape
+    hw = h * w
+    idx = torch.where(fg.reshape(u, hw) != 0, labels.reshape(u, hw).to(torch.int64), hw)
+    areas = torch.zeros((u, hw + 1), dtype=torch.int32, device=labels.device)
+    areas.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+    return areas[:, :hw]
+
+
+# the JAX package's tile shape for its tiled stats, kept for the signature
+_TILE_HW = (315, 316)
+
+
+def largest_component_sums_tiled(fg: torch.Tensor, labels: torch.Tensor,
+                                 tile_hw: tuple[int, int] = _TILE_HW,
+                                 use_tables: bool | None = None):
+    """The JAX package's whole-image stats contract on given labels: kernel
+    F (:func:`component_stats`). Returns (mask [U, H, W] bool, area [U]
+    int32, sx [U], sy [U], has_fg [U] bool), sx/sy int32 where
+    ``max(H, W) * H * W < 2**31`` and int64 otherwise, as the JAX package's
+    sums. ``tile_hw`` and ``use_tables`` pick the JAX package's TPU tiling;
+    the result does not depend on them, and they are accepted and ignored
+    here. Raises ValueError unless ``U * H * W < 2**31 - 1``."""
+    u, h, w = fg.shape
+    if u * h * w >= 2**31 - 1:
+        raise ValueError("tiled stats need u*h*w < 2^31")
+    mask, stats = component_stats(labels, fg)
+    sums = torch.int32 if max(h, w) * h * w < 2**31 else torch.int64
+    return (mask, stats[:, 0].to(torch.int32), stats[:, 1].to(sums), stats[:, 2].to(sums),
+            stats[:, 3] > 0)
 
 
 # Kernel J runs one unit on a thread-block cluster: a unit above this many

@@ -14,6 +14,11 @@ Port of :func:`tpu_inspect.ops.contour.analyze_blobs` (``contour.py:46-141``):
 :func:`contour_sums_x2` is that last step in plain torch ops; it launches
 nothing, so kernel G's plain version (``ops.blob_select.blob_select_plain``,
 which kernel C's plain version calls) shares it.
+
+:func:`select_blobs` paints kept blobs' fill regions (kernel D seeded by
+their roots), and :func:`filter_and_select` is the whole filter: kernel C
+on a unit whose sums fit it, else :func:`fill_regions` (kernels D, E, D)
+and kernel G, the engine's whole-image composition.
 """
 
 from __future__ import annotations
@@ -22,8 +27,10 @@ from dataclasses import dataclass
 
 import torch
 
+from tpu_inspect_torch.kernels import as_planes
 from tpu_inspect_torch.ops._contour_table import CONTOUR_TABLE_X2
 from tpu_inspect_torch.ops.cc import label_components
+from tpu_inspect_torch.ops.flood import propagate
 from tpu_inspect_torch.ops.hole_fill import exterior_background
 
 
@@ -96,3 +103,50 @@ def analyze_blobs(fg: torch.Tensor, *, err=None) -> BlobAnalysis:
         contour_area_x2=areas_x2,
         is_root=is_root,
     )
+
+
+def select_blobs(analysis: BlobAnalysis, keep: torch.Tensor) -> torch.Tensor:
+    """keep: [U, H*W] bool per root -> the kept blobs' fill regions (blob
+    plus enclosed holes and nested content, filled drawContours of the
+    external polygon), [U, H, W] bool: kernel D, 8-connected through the
+    fill mask, seeded by the kept roots."""
+    u, h, w = analysis.fill_mask.shape
+    seeds = (keep & analysis.is_root).reshape(u, h, w)
+    return propagate(seeds, analysis.fill_mask, conn8=True)
+
+
+def fill_regions(m: torch.Tensor, err=None):
+    """(fill labels int32, top-level blob pixels bool, exterior bool) of a
+    [U, H, W] bool candidate plane: kernel D for the exterior; kernel E for
+    the fill labels; kernel D again, seeded with each fill region's
+    raster-first pixel (always a pixel of its top-level blob), for the
+    top-level blobs through the candidates, 8-connected (the JAX package's
+    ``contour.py:596-602``). ``err`` as for
+    :func:`tpu_inspect_torch.ops.flood.propagate`."""
+    u, h, w = m.shape
+    ext = exterior_background(m, err=err)
+    fill_labels = label_components(~ext, err=err)
+    lin = torch.arange(h * w, dtype=torch.int32, device=m.device).reshape(1, h, w)
+    top = propagate(m & (fill_labels == lin), m, conn8=True, err=err)
+    return fill_labels, top, ext
+
+
+def filter_and_select(fg: torch.Tensor, min_area_x2, max_area_x2):
+    """The blob filter on a [U, H, W] bool (or uint8, nonzero = set)
+    candidate plane: keep the top-level blobs with ``min_area_x2 <=
+    2*contourArea <= max_area_x2[u]`` and paint their fill regions.
+    ``min_area_x2`` is an int, ``max_area_x2`` a [U] vector. Returns
+    (out_mask [U, H, W] bool, found [U] bool). Kernel C where its int32
+    sums fit the unit, else :func:`fill_regions` then kernel G."""
+    # imported here: ops.blob_select imports this module
+    from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_fits
+    from tpu_inspect_torch.ops.blob_select import blob_select
+
+    fg = as_planes(fg, "filter_and_select")
+    _, h, w = fg.shape
+    max_x2 = torch.as_tensor(max_area_x2, dtype=torch.int32, device=fg.device).contiguous()
+    if blob_filter_fits(h, w):
+        out, area = blob_filter(fg, max_x2, min_x2=int(min_area_x2))
+    else:
+        out, area = blob_select(*fill_regions(fg != 0), max_x2, min_x2=int(min_area_x2))
+    return out > 0, area > 0

@@ -349,6 +349,12 @@ def morph_open(x: torch.Tensor, se: np.ndarray) -> torch.Tensor:
     return _on_mask(x, (("erode", runs), ("dilate", runs)))
 
 
+def morph_close(x: torch.Tensor, se: np.ndarray) -> torch.Tensor:
+    """Dilate then erode with ``se``, in one launch of kernel I."""
+    runs = _runs_tuple(se)
+    return _on_mask(x, (("dilate", runs), ("erode", runs)))
+
+
 def erode_rect3(x: torch.Tensor, iterations: int) -> torch.Tensor:
     """cv2.erode(x, None, iterations=n) of [U, H, W] masks: one (2n+1)^2
     rect erode (:func:`rect_erode_stages`), uint8 0/255; n <= 0 returns

@@ -131,6 +131,12 @@ def threshold_binary_inv(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     return torch.where(x.to(torch.int32) <= t, 255, 0).to(torch.uint8)
 
 
+def otsu_binary_inv(x: torch.Tensor) -> torch.Tensor:
+    """cv2.threshold(x, 0, 255, THRESH_BINARY_INV + THRESH_OTSU) per unit of
+    [U, H, W] uint8: the Otsu kernel's threshold, then the compare."""
+    return threshold_binary_inv(x, otsu_threshold(x))
+
+
 def threshold_binary(x: torch.Tensor, thr: int) -> torch.Tensor:
     """THRESH_BINARY: 255 where x > thr."""
     return torch.where(x.to(torch.int32) > int(thr), 255, 0).to(torch.uint8)

@@ -69,6 +69,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     from tpu_inspect_torch.imageio import gather_crops
     from tpu_inspect_torch.ops.blob import candidate_mask
     from tpu_inspect_torch.ops.canny import canny_planes, canny_u8
+    from tpu_inspect_torch.ops.contour import fill_regions
     from tpu_inspect_torch.ops.fused import tail_mask
     from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
     from tpu_inspect_torch.ops.hole_fill import exterior_background
@@ -111,13 +112,13 @@ def planes(dev: torch.device, small: bool = False) -> dict:
                                   roi_st_w[:, 4].to(torch.int32).contiguous(),
                                   roi_st_w[:, 5].to(torch.int32).contiguous())
     m_w = candidate_mask(cand_w, roi_w, True)
-    fill_w, top_w, ext_w = engine._fill_regions(m_w)
+    fill_w, top_w, ext_w = fill_regions(m_w)
     # kernel G's inputs: the defect tail's fill regions, threshold and Canny
     # forms, and the ROI's max area (engine._defect)
     max_x2_w = (2 * torch.clamp(torch.floor(roi_st_w[:, 0].to(torch.float64) * dp.max_area_frac),
                                 min=dp.min_area).to(torch.int32)).contiguous()
     m_cw = candidate_mask(canny_u8(whole, lo, hi), roi_w, False)
-    fill_cw, top_cw, ext_cw = engine._fill_regions(m_cw)
+    fill_cw, top_cw, ext_cw = fill_regions(m_cw)
     # kernel J's: the erosion preview's unit (its seg mask eroded) and the
     # 48 eroded seg masks with an empty and a full unit in place of the
     # first two
