@@ -37,7 +37,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whole plane; kernels A and K at erode_px 200 and A, C and K on units too
    large for their shared-memory layout (the global-scratch variant);
    seeded random planes of odd sizes with an empty and a full unit, and a
-   long 1-px serpentine; then the ``cuda``-marked tests of the Otsu kernel,
+   long 1-px serpentine; then the ``cuda``-marked tests of the adaptive
+   mean (the card against the CPU) and of the Otsu kernel,
    of the redesigned A, K and C, of the redesigned D and E, of the
    redesigned B and H and of the redesigned I and F
    (``tests/test_torch_otsu.py``,
@@ -96,6 +97,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    engine on the card and every rank's launches checked; the walls of each
    call (the slowest rank) are printed: ranks sharing one card measure the
    split's and the collectives' overhead, not scaling;
+4b. the seeded differential fuzz (:mod:`tpu_inspect_torch.tools.fuzz_parity`)
+   in this process at a fixed seed and trial count (``SMOKE_SEED``,
+   ``SMOKE_TRIALS``): every entry point's trial class at least once (units,
+   image, chained, whole, diag, preview and sharded), each call on the card
+   held field by field against ``device="cpu"`` (and the CPU run against
+   the oracle copy where the class has one), each call's launch counts
+   equal to its route's; any failing trial exits non-zero;
 5. times on the card: each kernel vs its plain version (CUDA events, median
    of repeated runs at the paths' shapes, the whole planes included; the
    kernels with a bound flag share one, read after the timings) beside
@@ -729,7 +737,7 @@ def main() -> int:
     from tpu_inspect_torch.png import encode_png
     from tpu_inspect_torch.session import InspectionSession
     from tpu_inspect_torch.streaming import stream_inspect, stream_inspect_paths
-    from tpu_inspect_torch.tools import median_probe
+    from tpu_inspect_torch.tools import fuzz_parity, median_probe
     from tpu_inspect_torch.ui import UIServer
     from tpu_inspect_torch.synthetic import (
         make_mold_image,
@@ -1217,13 +1225,15 @@ def main() -> int:
     # redesigned J and G (band seams, diagonal joins at a seam, a tie across
     # bands, H = 1 and 2, widths 1 and 31-33, the global scratch; regions
     # first in the last odd row or column, one over many chunks, a whole
-    # capture whose sums pass 2^31), and the sync checks, each against its
-    # plain version; the files' other tests repeat this script's own checks
+    # capture whose sums pass 2^31), the adaptive mean's float64 ops on the
+    # card against the CPU (fault C7's unit, blocks 9-201), and the sync
+    # checks, each against its plain version; the files' other tests repeat
+    # this script's own checks
     mark("phase 3: the cuda-marked tests start")
     tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
              "tests/test_torch_median_hist.py", "tests/test_torch_cluster.py"]
     selected = ("otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist "
-                "or mask_chain or cc_stats_ or test_torch_cluster or public_name")
+                "or mask_chain or cc_stats_ or test_torch_cluster or public_name or adaptive_mean")
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
          "--noconftest", "-p", "no:cacheprovider"],
@@ -1804,6 +1814,21 @@ def main() -> int:
                                                     dparams, card)
     launches_by_path.update(sharded_launches)
     say(f"phase 4: sharded walls (ms, the slowest rank) {json.dumps(sharded_walls)} on {card}")
+
+    # ---- phase 4b: the seeded differential fuzz ----------------------------
+    # a fixed seed and trial count (not a time budget): every run does the
+    # same work, every trial class once at least, the sharded one included
+    mark("phase 4b starts")
+    t0 = time.perf_counter()
+    say(f"phase 4b: fuzz_parity seed {fuzz_parity.SMOKE_SEED}, {fuzz_parity.SMOKE_TRIALS} trials")
+    fuzz = fuzz_parity.run(fuzz_parity.SMOKE_SEED, fuzz_parity.SMOKE_TRIALS, "cuda",
+                           say=lambda line: say(f"phase 4b: {line}"))
+    if fuzz["failures"]:
+        fail(f"phase 4b: the fuzz found {fuzz['failures']} failing trials")
+    if set(fuzz["per_class"]) != set(fuzz_parity.CLASSES):
+        fail(f"phase 4b: the fuzz did not run every class: {fuzz['per_class']}")
+    say(f"phase 4b: {fuzz['trials']} trials, 0 failures, {fuzz['otsu_ties']} Otsu ties in "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
 
     # ---- phase 5: times ----------------------------------------------------
     mark("phase 5 starts")

@@ -3,9 +3,14 @@
 Same seeded numpy inputs through ``tpu_inspect_torch`` (CPU tensors, so
 kernel D runs as its plain version) and ``tpu_inspect`` (JAX on its CPU
 backend, where the XLA fallbacks run), compared with exact equality, dtypes
-included: the float32 Gaussian local mean must round tap by tap as OpenCV
-does (no fused multiply-add), and Canny's NMS and hysteresis are integer.
+included; Canny's NMS and hysteresis are integer. The float32 Gaussian
+local mean rounds as OpenCV's filters do (fused multiply-adds, the column
+pass by symmetric pairs), which the JAX package's tap-by-tap rounding
+matches except where a sum lies within a rounding of a half: there the
+port is held against ``cv2.adaptiveThreshold`` itself.
 """
+
+import cv2
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,6 +60,46 @@ def test_adaptive_gaussian_mean_matches_reference(units, block):
     # 201 > the unit's 44x48: the replicate pad (100) exceeds the plane
     _eq(adaptive_gaussian_mean(torch.from_numpy(units), block),
         jgauss.adaptive_gaussian_mean(jnp.asarray(units), block))
+
+
+def _cv2_mean(x: np.ndarray, block: int) -> np.ndarray:
+    """cv2.adaptiveThreshold's uint8 local mean, read back from its output
+    at every C: a pixel is 255 exactly while C <= mean - x."""
+    best = np.full(x.shape, -256, np.int64)
+    for c in range(-255, 256):
+        out = cv2.adaptiveThreshold(x, 255, cv2.ADAPTIVE_THRESH_GAUSSIAN_C,
+                                    cv2.THRESH_BINARY_INV, block, c)
+        best = np.where(out > 0, c, best)
+    return (best + x).astype(np.uint8)
+
+
+@pytest.mark.parametrize("block", [9, 11, 51, 119, 201])
+def test_adaptive_gaussian_mean_matches_opencv(units, block):
+    rng = np.random.RandomState(block)
+    planes = [units[0], units[1], rng.randint(0, 256, (37, 131)).astype(np.uint8),
+              cv2.GaussianBlur(rng.randint(0, 256, (29, 70)).astype(np.uint8), (5, 5), 0)]
+    for x in planes:
+        got = adaptive_gaussian_mean(torch.from_numpy(np.ascontiguousarray(x))[None], block)
+        np.testing.assert_array_equal(got[0].numpy(), _cv2_mean(x, block))
+
+
+def test_adaptive_threshold_fuzz_trial_matches_opencv():
+    """The fuzz tool's seed 3014 trial 91 (image class): unit 0 of its
+    reference capture, blurred at 25, adaptive block 119, C = -1. The JAX
+    package's tap-by-tap mean gives 199 at pixel (275, 12), where OpenCV's
+    (and the port's) rounds to 198, so its mask differs there."""
+    from tpu_inspect_torch.imageio import crops_for_grid
+    from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
+    from tpu_inspect_torch.tools import fuzz_parity as fp
+
+    t = fp.trials(3014, 1, start=91)[0]
+    crop = crops_for_grid(fp.capture(t, False), t.get("grid"), device="cpu")[:1]
+    x = gaussian_blur_u8(crop, 25)
+    want = cv2.adaptiveThreshold(x[0].numpy(), 255, cv2.ADAPTIVE_THRESH_GAUSSIAN_C,
+                                 cv2.THRESH_BINARY_INV, 119, -1)
+    np.testing.assert_array_equal(adaptive_threshold_inv(x, 119, -1)[0].numpy(), want)
+    jax_mask = np.asarray(jthr.adaptive_threshold_inv(jnp.asarray(x.numpy()), 119, -1))[0]
+    assert np.argwhere(jax_mask != want).tolist() == [[275, 12]]
 
 
 @pytest.mark.parametrize("c", [-50, 0, 10, 50])

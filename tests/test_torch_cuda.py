@@ -64,6 +64,29 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("block", [9, 51, 119, 201])
+def test_adaptive_mean_matches_cpu(cuda, block):
+    """The adaptive Gaussian mean (float64 torch ops on both devices, the
+    column pass's fused multiply-adds rounded through round-to-odd) on the
+    card equals ``device="cpu"``: unit 0 of the fuzz tool's seed 3014 trial
+    91 blurred at 25 (where the mean first differed from OpenCV's), and
+    random planes of widths 1, 33 and 316 with a flat and a saturated one."""
+    from tpu_inspect_torch.imageio import crops_for_grid
+    from tpu_inspect_torch.ops.gaussian import adaptive_gaussian_mean
+    from tpu_inspect_torch.tools import fuzz_parity as fp
+
+    t = fp.trials(3014, 1, start=91)[0]
+    crop = crops_for_grid(fp.capture(t, False), t.get("grid"), device="cpu")[:1]
+    rng = np.random.RandomState(block)
+    planes = [gaussian_blur_u8(crop, 25)] + [
+        torch.from_numpy(rng.randint(0, 256, (3, 40, w)).astype(np.uint8)) for w in (1, 33, 316)]
+    planes[-1][1], planes[-1][2] = 0, 255
+    for x in planes:
+        got = adaptive_gaussian_mean(x.to(cuda), block)
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), adaptive_gaussian_mean(x, block), rtol=0, atol=0)
+
+
 def _planes(rng, shape, p, cuda):
     return torch.from_numpy(((rng.rand(*shape) > p) * 255).astype(np.uint8)).to(cuda)
 

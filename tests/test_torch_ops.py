@@ -246,7 +246,8 @@ def test_engine_import_loads_no_jax():
         "tpu_inspect_torch.utils.profile, tpu_inspect_torch.tools.median_probe, "
         "tpu_inspect_torch.tools.kernel_bench, tpu_inspect_torch.parallel, "
         "tpu_inspect_torch.parallel.launch, tpu_inspect_torch.parallel.mesh, "
-        "tpu_inspect_torch.parallel.strips, tpu_inspect_torch.bench; "
+        "tpu_inspect_torch.parallel.strips, tpu_inspect_torch.bench, "
+        "tpu_inspect_torch.tools.fuzz_parity; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpu_inspect' or m.startswith('tpu_inspect.') "
         "or m == 'cv2' or m.startswith('cv2.')]; "

@@ -82,31 +82,65 @@ def _replicate_index(n: int, pad: int, device) -> torch.Tensor:
     return torch.arange(-pad, n + pad, device=device).clamp(0, n - 1)
 
 
-def adaptive_gaussian_mean(x: torch.Tensor, block_size: int) -> torch.Tensor:
-    """The uint8 Gaussian local mean of cv2.adaptiveThreshold (GAUSSIAN_C).
+# OpenCV's getGaussianKernel takes this table for a 9-tap kernel of
+# sigma <= 0 (the JAX package's copy of the kernel computes it, which its
+# uint8 path quantizes to the same taps, and its float path does not)
+_TAB_9 = np.array([4, 13, 30, 51, 60, 51, 30, 13, 4], np.float32) / np.float32(256)
 
-    Port of :func:`tpu_inspect.ops.gaussian.adaptive_gaussian_mean`: float32
-    taps, rows then columns in sequential tap order, BORDER_REPLICATE, then
-    cvRound (half to even) and saturation to uint8. Every tap is a product
-    and a sum as two separate torch ops, so each rounds on its own as in
-    OpenCV; a fused multiply-add (``addcmul``, ``add(alpha=)``, a fused
-    kernel) would round once and break bit-exactness.
+
+def _fma32(a64: torch.Tensor, f: float, c: torch.Tensor) -> torch.Tensor:
+    """``a * f + c`` rounded once to float32, as an FMA instruction does:
+    ``a64`` a float32 plane held in float64, ``f`` a float32 tap, ``c`` a
+    float32 plane. The product is exact in float64; the sum's float64
+    rounding is turned into rounding to odd (its exact error, by TwoSum,
+    says which way an inexact sum lies), so the one rounding to float32
+    that follows is correct."""
+    p = a64 * f
+    c64 = c.double()
+    s = p + c64
+    z = s - p
+    err = (p - (s - z)) + (c64 - z)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def adaptive_gaussian_mean(x: torch.Tensor, block_size: int) -> torch.Tensor:
+    """The uint8 Gaussian local mean of cv2.adaptiveThreshold (GAUSSIAN_C):
+    OpenCV's float32 ``GaussianBlur`` with BORDER_REPLICATE, then cvRound
+    (half to even) and saturation to uint8.
+
+    Its float32 taps are OpenCV's ``getGaussianKernel(k, 0, CV_32F)``: the
+    computed kernel, or for k = 9 OpenCV's table. OpenCV's separable float
+    filters (its code dispatched for an x86-64 host with AVX2 and FMA3)
+    round as follows, and so does this function on both devices: the row
+    pass runs the taps in order as fused multiply-adds from 0; the column
+    pass (a symmetric kernel) starts from the centre tap's product and adds
+    each pair of taps, the two rows summed in float32 first, as a fused
+    multiply-add. In the row pass every
+    product and partial sum is a multiple of 2^-38 below 2^9 (an integer
+    pixel times a float32 tap of at least 2^-15, the smallest at block
+    201), so its float64 sum is exact and one rounding to float32 makes the
+    FMA; the column pass's products are not, so it takes :func:`_fma32`.
+    The JAX package's mean (``tpu_inspect/ops/gaussian.py``) rounds each
+    product and sum on their own, in tap order down the columns too, and
+    computes the 9-tap kernel: it differs from OpenCV where a sum lies
+    within a rounding of a half, and at block 9.
     """
     k = int(block_size)
     if k <= 1:
         return x
-    ker = gaussian_kernel_f64(k).astype(np.float32)
+    ker = _TAB_9 if k == 9 else gaussian_kernel_f64(k).astype(np.float32)
     pad = k // 2
     h, w = x.shape[-2], x.shape[-1]
-    xf = x.to(torch.float32)
-    p = xf.index_select(-1, _replicate_index(w, pad, x.device))
-    tmp = torch.zeros_like(xf)
+    p = x.to(torch.float64).index_select(-1, _replicate_index(w, pad, x.device))
+    row = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for t in range(k):
-        prod = p[..., t : t + w] * float(ker[t])
-        tmp = tmp + prod
-    p = tmp.index_select(-2, _replicate_index(h, pad, x.device))
-    out = torch.zeros_like(xf)
-    for t in range(k):
-        prod = p[..., t : t + h, :] * float(ker[t])
-        out = out + prod
+        row = (p[..., t : t + w] * float(ker[t]) + row.double()).float()
+    q = row.index_select(-2, _replicate_index(h, pad, x.device))
+    out = (q[..., pad : pad + h, :].double() * float(ker[pad])).float()
+    for t in range(1, pad + 1):
+        pair = q[..., pad + t : pad + t + h, :] + q[..., pad - t : pad - t + h, :]
+        out = _fma32(pair.double(), float(ker[pad + t]), out)
     return torch.round(out).clamp(0, 255).to(torch.uint8)

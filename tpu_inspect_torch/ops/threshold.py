@@ -33,12 +33,12 @@ def histogram_u8_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.bincount(flat.reshape(-1), minlength=256 * u).reshape(u, 256)
 
 
-def otsu_threshold_from_hist_plain(hist: torch.Tensor, n: int) -> torch.Tensor:
-    """The plain PyTorch version of :func:`otsu_threshold_from_hist`: the
-    256-step recurrence as float64 torch ops on a host copy of the
-    histogram (each step a dozen element-wise ops on [U] values); the
-    result goes back to the histogram's device."""
-    dev = hist.device
+def otsu_sigmas_plain(hist: torch.Tensor, n: int) -> torch.Tensor:
+    """The between-class variance of every threshold of the Otsu scan, as
+    :func:`otsu_threshold_from_hist_plain` computes it: [U, 256] float64 on
+    the CPU, ``-inf`` where OpenCV's epsilon guard skips the threshold.
+    The 256-step recurrence as float64 torch ops on a host copy of the
+    histogram (each step a dozen element-wise ops on [U] values)."""
     h = hist.to(device="cpu", dtype=torch.float64)
     f64 = dict(dtype=torch.float64)
     u = h.shape[0]
@@ -52,8 +52,7 @@ def otsu_threshold_from_hist_plain(hist: torch.Tensor, n: int) -> torch.Tensor:
     ip = bins[:, None] * p  # fl(i * p_i)
     q1 = torch.zeros(u, **f64)
     mu1 = torch.zeros(u, **f64)
-    max_sigma = torch.zeros(u, **f64)
-    max_val = torch.zeros(u, dtype=torch.int32)
+    out = torch.full((u, 256), float("-inf"), **f64)
     for i in range(256):
         mu1 = mu1 * q1  # old q1 (un-normalize)
         q1 = q1 + p[i]
@@ -64,12 +63,20 @@ def otsu_threshold_from_hist_plain(hist: torch.Tensor, n: int) -> torch.Tensor:
         mu1_new = (mu1 + ip[i]) / q1
         mu2 = (mu - q1 * mu1_new) / q2
         d = mu1_new - mu2
-        sigma = q1 * q2 * d * d
+        out[:, i] = torch.where(guard, float("-inf"), q1 * q2 * d * d)
         mu1 = torch.where(guard, mu1, mu1_new)
-        better = (~guard) & (sigma > max_sigma)
-        max_sigma = torch.where(better, sigma, max_sigma)
-        max_val = torch.where(better, torch.tensor(i, dtype=torch.int32), max_val)
-    return max_val.to(dev)
+    return out
+
+
+def otsu_threshold_from_hist_plain(hist: torch.Tensor, n: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`otsu_threshold_from_hist`: the
+    first threshold of the largest variance of :func:`otsu_sigmas_plain`
+    (OpenCV's strict ``>`` from 0), 0 where none is above 0; the result
+    goes back to the histogram's device."""
+    sigma = otsu_sigmas_plain(hist, n)
+    best = sigma.max(dim=1, keepdim=True).values
+    first = torch.where(sigma == best, torch.arange(256), 256).min(dim=1).values
+    return torch.where(best[:, 0] > 0, first, 0).to(torch.int32).to(hist.device)
 
 
 def histogram_u8(x: torch.Tensor) -> torch.Tensor:
