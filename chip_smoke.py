@@ -8,9 +8,9 @@ Run from the repository root with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build the thirteen CUDA kernels (A-L and the Otsu head kernel) from
-   ``tpu_inspect_torch/csrc`` (one nvcc per source, all started together,
-   sm_90a);
+2. build the fifteen CUDA kernels (A-L and the head kernels: Otsu, M the
+   u8 Gaussian blur, N the adaptive mean) from ``tpu_inspect_torch/csrc``
+   (one nvcc per source, all started together, sm_90a);
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
    bit-exact (tolerance 0): the standard workload's own stage inputs
    (48 units of 315x316: the seg and ROI tails, the median residual, the
@@ -34,11 +34,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    12; kernel L (the median probe) in its baseline mode at each strip length
    (k = 9 with row bounds, k = 21 on every row);
    the Otsu kernel (histogram and scan) on the 48 blurred crops and on the
-   whole plane; kernels A and K at erode_px 200 and A, C and K on units too
+   whole plane; kernel M (the blur) at k = 3 on the 48 crops and on the
+   whole plane and at k = 31, kernel N (the adaptive compare at block 51,
+   C = 10, on the blurred crops and on the whole plane; block 201; the mean
+   alone); then M at k 3, 5, 7, 9 (sigma 0 and 1.7), 25 and 31 and N at
+   blocks 3, 9, 51, 119 and 201 (the mean and the compare at C -1 and 10)
+   on planes of the card's own generator at widths 1 and 31-33, H = 1 and
+   units narrower than the pad (2x2, 7x2), on 3 crops of the workload and
+   on the whole plane, and N on fault C7's unit (blur 25, block 119, C -1);
+   kernels A and K at erode_px 200 and A, C and K on units too
    large for their shared-memory layout (the global-scratch variant);
    seeded random planes of odd sizes with an empty and a full unit, and a
-   long 1-px serpentine; then the ``cuda``-marked tests of the adaptive
-   mean (the card against the CPU) and of the Otsu kernel,
+   long 1-px serpentine; then the ``cuda``-marked tests of kernels M and
+   N (their edge shapes; the adaptive mean on the card against the CPU)
+   and of the Otsu kernel,
    of the redesigned A, K and C, of the redesigned D and E, of the
    redesigned B and H and of the redesigned I and F
    (``tests/test_torch_otsu.py``,
@@ -107,7 +116,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. times on the card: each kernel vs its plain version (CUDA events, median
    of repeated runs at the paths' shapes, the whole planes included; the
    kernels with a bound flag share one, read after the timings) beside
-   its bound (the bytes the call must move at 3.35 TB/s; for B and H also
+   its bound (the bytes the call must move at 3.35 TB/s, for N the larger
+   of that and its floating operations at 67 TFLOP/s; for B and H also
    their design's floor, its operation count at the int32 issue rate,
    printed beside the times and kept out of the ``kernels`` line),
    each combo's
@@ -156,6 +166,7 @@ ROOT = Path(__file__).resolve().parent
 REPS_KERNEL = 10
 REPS_E2E = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, the data sheet
 # H100 SXM int32 issue rate: 64 int32 lanes an SM a clock (the Hopper
 # architecture white paper) x 132 SMs x 1.98 GHz boost
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -410,8 +421,8 @@ def profile_combo(label: str, run, card: str, per: int = 1, unit: str = "image",
 SHARDED_GLOO_RANKS = 4
 # the kernels each sharded call must launch on every rank
 SHARDED_KERNELS = {
-    "units": ("otsu", "seg_tail", "median_residual", "blob_filter"),
-    "segment": ("otsu", "morph", "propagate"),
+    "units": ("gauss_blur", "otsu", "seg_tail", "median_residual", "blob_filter"),
+    "segment": ("gauss_blur", "otsu", "morph", "propagate"),
     "defect threshold": ("morph", "median_residual", "label", "cc_stats", "propagate",
                          "blob_select"),
     "defect canny": ("morph", "label", "cc_stats", "propagate", "blob_select"),
@@ -689,7 +700,7 @@ def main() -> int:
 
     from tpu_inspect_torch import engine, geometry, native, render
     from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
-    from tpu_inspect_torch.imageio import gather_crops
+    from tpu_inspect_torch.imageio import crops_for_grid, gather_crops
     from tpu_inspect_torch.kernels import LAUNCHES, build, error_flag, reset_launches
     from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain, candidate_mask
     from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
@@ -711,7 +722,12 @@ def main() -> int:
         seg_tail_plain,
         tail_mask,
     )
-    from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
+    from tpu_inspect_torch.ops.gaussian import (
+        adaptive_gaussian_mean,
+        adaptive_gaussian_mean_plain,
+        gaussian_blur_u8,
+        gaussian_blur_u8_plain,
+    )
     from tpu_inspect_torch.ops.median import (
         median_blur_u8,
         median_blur_u8_plain,
@@ -728,6 +744,7 @@ def main() -> int:
     )
     from tpu_inspect_torch.ops.threshold import (
         adaptive_threshold_inv,
+        adaptive_threshold_inv_plain,
         histogram_u8,
         otsu_threshold,
         otsu_threshold_from_hist,
@@ -780,7 +797,8 @@ def main() -> int:
     crops = gather_crops(image, origins, (h, w))
     x = gaussian_blur_u8(crops, seg.gaussian_blur)
     thr = otsu_threshold(x)
-    x_ad = adaptive_threshold_inv(x, max(3, seg_ad.adapt_block | 1), seg_ad.adapt_C)
+    ad_block, ad_c = max(3, seg_ad.adapt_block | 1), seg_ad.adapt_C
+    x_ad = adaptive_threshold_inv(x, ad_block, ad_c)
     co = close_open_stages(seg.morph_kernel)
     erode = rect_erode_stages(dparams.erode_px)
     k, t_res = dparams.median_k, dparams.threshold
@@ -898,6 +916,12 @@ def main() -> int:
         "otsu": [
             ("48 blurred crops", lambda f: f(x), (x,)),
         ],
+        "gauss_blur": [
+            (f"48 units, k {seg.gaussian_blur}", lambda f: f(crops, seg.gaussian_blur), (crops,)),
+        ],
+        "adaptive": [
+            (f"48 units, block {ad_block}, C {ad_c}", lambda f: f(x, ad_block, ad_c), (x,)),
+        ],
     }
     # units too large for kernels A's, C's and K's shared-memory layout:
     # their global-scratch variant
@@ -961,6 +985,13 @@ def main() -> int:
             ("global scratch 2x401x421", lambda f: f(255 - big_u, co, erode, big_thr),
              (big_u, big_thr)),
         ],
+        "gauss_blur": [
+            ("48 units, k 31", lambda f: f(crops, 31), (crops,)),
+        ],
+        "adaptive": [
+            (f"48 units, block 201, C {ad_c}", lambda f: f(x, 201, ad_c), (x,)),
+            (f"mean, 48 units, block {ad_block}", lambda f: f(x, ad_block), (x,)),
+        ],
     }
     # the whole-image route (one inspect_units call on 1x3000x4096): B, D
     # and E on whole planes, and kernels F and G
@@ -1002,6 +1033,25 @@ def main() -> int:
         "otsu": [
             ("whole plane", lambda f: f(x_w), (x_w,)),
         ],
+        "gauss_blur": [
+            (f"whole plane, k {seg.gaussian_blur}", lambda f: f(whole, seg.gaussian_blur),
+             (whole,)),
+        ],
+        "adaptive": [
+            (f"whole plane, block {ad_block}, C {ad_c}", lambda f: f(x_w, ad_block, ad_c), (x_w,)),
+        ],
+    }
+    # kernel N's floating operations a form does (its bound is the larger
+    # of these at the float32 rate and its bytes): at block k, k FMAs, a
+    # multiply and (k - 1) / 2 adds and FMAs a pixel, an FMA counted as two
+    def adaptive_flops(plane, kk):
+        return plane.numel() * (2 * kk + 1 + 3 * (kk // 2))
+
+    form_flops = {
+        ("adaptive", f"48 units, block {ad_block}, C {ad_c}"): adaptive_flops(x, ad_block),
+        ("adaptive", f"48 units, block 201, C {ad_c}"): adaptive_flops(x, 201),
+        ("adaptive", f"mean, 48 units, block {ad_block}"): adaptive_flops(x, ad_block),
+        ("adaptive", f"whole plane, block {ad_block}, C {ad_c}"): adaptive_flops(x_w, ad_block),
     }
     # the walk's forms (kernels B, H and L): the rows each unit walks and
     # the strip rows, for the design's operation count (walk_ops): B's and
@@ -1037,6 +1087,14 @@ def main() -> int:
         ops = walk_ops(rows, hh, ww, kk, strip)
         return ops / max(1, ww * sum(rows)), ops / INT32_OPS_PER_S * 1e3
 
+    def adaptive_fn(x_, k_, c_=None):
+        """Kernel N: the path's form (the compare at ``c_``), or the mean."""
+        return adaptive_gaussian_mean(x_, k_) if c_ is None else adaptive_threshold_inv(x_, k_, c_)
+
+    def adaptive_fn_plain(x_, k_, c_=None):
+        return (adaptive_gaussian_mean_plain(x_, k_) if c_ is None
+                else adaptive_threshold_inv_plain(x_, k_, c_))
+
     def probe_plain(x_, k_, thr_, lo=None, hi=None, mode="baseline", strip=None):
         """Kernel L's plain version: kernel B's (its baseline mode only; the
         ablations are timed, never compared)."""
@@ -1066,6 +1124,8 @@ def main() -> int:
         "seg_roi_tail": (flagged(seg_roi_tail), seg_roi_tail_plain),
         "median_probe": (median_probe.probe, probe_plain),
         "otsu": (otsu_threshold, otsu_threshold_plain),
+        "gauss_blur": (gaussian_blur_u8, gaussian_blur_u8_plain),
+        "adaptive": (adaptive_fn, adaptive_fn_plain),
     }
 
     def compare(name, label, got, ref):
@@ -1179,6 +1239,44 @@ def main() -> int:
         "median_blur", "64-bit bins", median_blur_u8(tiny, 46341),
         median_blur_u8_plain(tiny, 46341, rows_per_step=1)))
     say("phase 3: median_blur [k 46341, 64-bit bins] 2x3x5 bit-exact vs plain")
+    # kernels M and N at their edges: planes of the card's own generator at
+    # widths 1 and 31-33, H = 1 and units narrower than the pad (2x2 at
+    # k 31, 7x2 at block 201), 3 crops of the workload (raw and blurred),
+    # the whole plane, and fault C7's unit (seed 3014 trial 91's first unit,
+    # blur 25, block 119, C -1)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    edge = [torch.randint(0, 256, sh, generator=gen, device=dev, dtype=torch.uint8)
+            for sh in ((3, 40, 1), (2, 1, 64), (2, 37, 31), (1, 33, 32), (2, 29, 33), (1, 2, 2),
+                       (1, 7, 2))]
+    edge[2][1], edge[4][1] = 77, 255  # a flat and a saturated unit
+    edge += [crops[:3].contiguous(), x[:3].contiguous()]
+    n_head = 0
+    for kb, sg in ((3, 0.0), (5, 0.0), (7, 0.0), (9, 0.0), (9, 1.7), (25, 0.0), (31, 0.0)):
+        for pl in edge + [whole]:
+            errs["gauss_blur"] = max(errs["gauss_blur"], compare(
+                "gauss_blur", f"k {kb}, sigma {sg}, {tuple(pl.shape)}",
+                gaussian_blur_u8(pl, kb, sg), gaussian_blur_u8_plain(pl, kb, sg)))
+            n_head += 1
+    for blk in (3, 9, 51, 119, 201):
+        for pl in edge + [x_w]:
+            for c_ in ((None, -1, 10) if pl is not x_w else (ad_c,)):
+                errs["adaptive"] = max(errs["adaptive"], compare(
+                    "adaptive", f"block {blk}, C {c_}, {tuple(pl.shape)}",
+                    adaptive_fn(pl, blk, c_), adaptive_fn_plain(pl, blk, c_)))
+                n_head += 1
+    t7 = fuzz_parity.trials(3014, 1, start=91)[0]
+    c7 = crops_for_grid(fuzz_parity.capture(t7, False), t7.get("grid"), device="cuda")[:1]
+    x7 = gaussian_blur_u8(c7.contiguous(), 25)
+    errs["gauss_blur"] = max(errs["gauss_blur"], compare(
+        "gauss_blur", "C7 unit, k 25", x7, gaussian_blur_u8_plain(c7, 25)))
+    m7 = adaptive_fn(x7, 119, -1)
+    errs["adaptive"] = max(errs["adaptive"], compare(
+        "adaptive", "C7 unit, block 119, C -1", m7, adaptive_fn_plain(x7, 119, -1)))
+    torch.cuda.synchronize()
+    say(f"phase 3: gauss_blur (k 3-31, sigma 0 and 1.7) and adaptive (blocks 3-201, the mean and "
+        f"the compare) bit-exact vs plain in {n_head + 2} cases: widths 1 and 31-33, H = 1, "
+        f"2x2 and 7x2 units, workload crops, the whole plane, and C7's unit "
+        f"{tuple(c7.shape)} (pixel (275, 12): {int(m7[0, 275, 12])})")
     # kernel J beyond the paths' units: 2x401x421 and 1x1024x1024 (bands in
     # shared memory), and 1x8x131072, whose band slots (8 bytes a 2x2 block)
     # exceed a block's shared memory: the global-scratch form
@@ -1227,13 +1325,15 @@ def main() -> int:
     # first in the last odd row or column, one over many chunks, a whole
     # capture whose sums pass 2^31), the adaptive mean's float64 ops on the
     # card against the CPU (fault C7's unit, blocks 9-201), and the sync
-    # checks, each against its plain version; the files' other tests repeat
+    # checks, kernels M and N at their edge shapes, each against its plain
+    # version; the files' other tests repeat
     # this script's own checks
     mark("phase 3: the cuda-marked tests start")
     tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
              "tests/test_torch_median_hist.py", "tests/test_torch_cluster.py"]
     selected = ("otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist "
-                "or mask_chain or cc_stats_ or test_torch_cluster or public_name or adaptive_mean")
+                "or mask_chain or cc_stats_ or test_torch_cluster or public_name or adaptive_mean "
+                "or gauss_blur_kernel or adaptive_kernel or head_kernels")
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
          "--noconftest", "-p", "no:cacheprovider"],
@@ -1283,7 +1383,9 @@ def main() -> int:
             cpu_s = time.perf_counter() - t0
             cpu_runs[path] = (s_cpu, i_cpu)
             if (launches["seg_tail"] < 2 or any(launches[n] < 1 for n in expect[def_m])
-                    or launches["otsu"] != (2 if seg_m == "otsu" else 0)):
+                    or launches["otsu"] != (2 if seg_m == "otsu" else 0)
+                    or launches["adaptive"] != (seg_m == "adaptive")
+                    or launches["gauss_blur"] != 1):
                 fail(f"{path}: the path missed a kernel, launches {launches}")
             for field in ("masks", "centroids", "centroid_valid", "shifts"):
                 a, b = getattr(s_gpu, field)[:n_cpu], getattr(s_cpu, field)
@@ -1375,10 +1477,12 @@ def main() -> int:
     def route_launches(path, launches, expect):
         """Fail unless every kernel of ``expect`` launched on the path,
         kernels A and C never, kernel I once a chain (the seg tail's; the
-        ROI's and the candidates' with a defect pass) and F once a tail."""
+        ROI's and the candidates' with a defect pass), F once a tail and M
+        once (the one seg pass)."""
         launches_by_path[path] = launches
         chains = {"morph": 3, "cc_stats": 2} if "blob_select" in expect else {
             "morph": 1, "cc_stats": 1}
+        chains["gauss_blur"] = 1
         if (any(launches[n] < 1 for n in expect) or launches["seg_tail"]
                 or launches["blob_filter"] or any(launches[n] != c for n, c in chains.items())):
             fail(f"{path}: not the whole-image route, launches {launches}")
@@ -1393,14 +1497,15 @@ def main() -> int:
                 if a.dtype != b.dtype or not np.array_equal(a, b):
                     fail(f"{path}: {field.name} differs from the CPU run")
 
-    seg_kernels = ("otsu", "propagate", "label", "cc_stats")
+    seg_kernels = ("gauss_blur", "otsu", "propagate", "label", "cc_stats")
     def_kernels = {"threshold": seg_kernels + ("median_residual", "blob_select"),
                    "canny": seg_kernels + ("blob_select",)}
 
     def route_kernels(seg_m, def_m):
         """The kernels a whole-image combo must launch (the Otsu kernel for
-        the otsu method only)."""
-        return tuple(n for n in def_kernels[def_m] if n != "otsu" or seg_m == "otsu")
+        the otsu method only, kernel N for the adaptive one)."""
+        return tuple(n for n in def_kernels[def_m] if n != "otsu" or seg_m == "otsu") + (
+            ("adaptive",) if seg_m == "adaptive" else ())
     # each entry point on the card is held against its own CPU run at full size
     whole_runs = [
         ("whole inspect_image otsu/threshold",
@@ -1491,8 +1596,9 @@ def main() -> int:
         got = run("cuda")
         launches = dict(LAUNCHES)
         route_launches(path, launches, route_kernels(seg_m, def_m))
-        if seg_m != "otsu" and launches["otsu"]:
-            fail(f"{path}: the Otsu kernel ran for {seg_m}, launches {launches}")
+        if ((seg_m != "otsu" and launches["otsu"])
+                or launches["adaptive"] != (seg_m == "adaptive") or launches["gauss_blur"] != 1):
+            fail(f"{path}: not the {seg_m} head, launches {launches}")
         verdicts, areas = got[1].verdicts.tolist(), got[1].areas.tolist()
         if def_m not in CROPPED_DEFECT_METHODS:
             t0 = time.perf_counter()
@@ -1665,7 +1771,8 @@ def main() -> int:
     engine._ENABLE_CHAIN = False
     launches_by_path[CHAIN_HOME] = launches
     if (launches["seg_roi_tail"] != 1 or launches["seg_tail"] or launches["median_residual"] != 1
-            or launches["blob_filter"] != 1 or launches["otsu"] != 2):
+            or launches["blob_filter"] != 1 or launches["otsu"] != 2
+            or launches["gauss_blur"] != 1):
         fail(f"{CHAIN_HOME}: not the chained path, launches {launches}")
     split = engine.inspect_image(work["image"], grid, seg, dparams, exclusions=excl,
                                  device="cuda")
@@ -1715,7 +1822,8 @@ def main() -> int:
         tails = {"seg_tail": 2 * n_fr, "seg_roi_tail": 0} if anchored else {
             "seg_tail": 0, "seg_roi_tail": n_fr}
         if any(launches[n] != c for n, c in {**tails, "median_residual": n_fr,
-                                            "blob_filter": n_fr, "otsu": 2 * n_fr}.items()):
+                                            "blob_filter": n_fr, "otsu": 2 * n_fr,
+                                            "gauss_blur": n_fr, "adaptive": 0}.items()):
             fail(f"{path}: launches {launches} for {n_fr} frames")
         held_stream(path, res, frame_refs[anchored])
         say(f"phase 4: {path}: {n_fr} frames 3000x4096 at prefetch {prefetch}, each equal to "
@@ -1838,8 +1946,12 @@ def main() -> int:
         for label, call, inputs in lst:
             ms = cuda_ms(lambda c=call: c(fast), REPS_KERNEL)
             pms = cuda_ms(lambda c=call: c(plain), REPS_KERNEL)
-            bound = (nbytes(inputs) + out_bytes[(name, label)]) / HBM_BYTES_PER_S * 1e3
-            rows.append({"form": label, "ms": ms, "plain_ms": pms, "bound_ms": bound})
+            bytes_ms = (nbytes(inputs) + out_bytes[(name, label)]) / HBM_BYTES_PER_S * 1e3
+            ops_ms = form_flops.get((name, label), 0) / FP32_FLOPS_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
+            bound_by = "operations" if ops_ms > bytes_ms else "bytes"
+            rows.append({"form": label, "ms": ms, "plain_ms": pms, "bound_ms": bound,
+                         "bound_by": bound_by})
             floor = ""
             if (name, label) in walk_forms:
                 # a model's count, not a measurement: printed, kept out of
@@ -1847,7 +1959,7 @@ def main() -> int:
                 per_px, floor_ms = design_floor(name, label)
                 floor = f", design floor {floor_ms:.4f} ms at {per_px:.0f} ops/px"
             say(f"phase 5: {name} [{label}] {ms:.4f} ms (plain {pms:.4f} ms, bound "
-                f"{bound * 1e3:.2f} us{floor}) on {card}")
+                f"{bound * 1e3:.2f} us by {bound_by}{floor}) on {card}")
         return rows
 
     times = {name: tuple(timed(name, cases.get(name, []))
@@ -2051,10 +2163,15 @@ def main() -> int:
         "seg_roi_tail": ("tpu_inspect_torch/csrc/seg_roi_tail.cu",
                          "tpu_inspect/ops/fused_pallas.py:1002"),
         "median_probe": ("tpu_inspect_torch/csrc/median_probe.cu", "tools/median_probe.py:142"),
-        # a head kernel: the JAX package computes the histogram and the scan
-        # with XLA ops (no pl.pallas_call)
+        # head kernels: the JAX package computes the histogram and the scan,
+        # the blur and the adaptive mean with XLA ops (no pl.pallas_call)
         "otsu": ("tpu_inspect_torch/csrc/otsu.cu",
                  "none (XLA ops, tpu_inspect/ops/threshold.py:50-125)"),
+        "gauss_blur": ("tpu_inspect_torch/csrc/gauss_blur.cu",
+                       "none (XLA ops, tpu_inspect/ops/gaussian.py:62-93)"),
+        "adaptive": ("tpu_inspect_torch/csrc/adaptive_mean.cu",
+                     "none (XLA ops, tpu_inspect/ops/gaussian.py:96-125, "
+                     "tpu_inspect/ops/threshold.py:148-160)"),
     }
     # further TPU kernels whose function a kernel serves (whole-image
     # counterparts of tiled TPU kernels, and same-function resident ones)
@@ -2072,8 +2189,11 @@ def main() -> int:
         "label": "defect_intermediates/canny", "cc_stats": WHOLE_HOME,
         "blob_select": WHOLE_HOME, "median_blur": BIG_K_HOME, "morph": WHOLE_HOME,
         "label_stats": SESSION_HOME, "seg_roi_tail": CHAIN_HOME, "median_probe": PROBE_HOME,
-        "otsu": "otsu/threshold reference",
+        "otsu": "otsu/threshold reference", "gauss_blur": "otsu/threshold reference",
+        "adaptive": "adaptive/threshold reference",
     }
+    # the whole-image path of each kernel's whole-plane forms
+    whole_home = {"adaptive": "whole inspect_image adaptive/threshold"}
     # kernel I's top-level numbers are its 13x13 erode form on the whole
     # plane, the form with a library yardstick (one of its launches there);
     # kernel L's its baseline at kernel B's strip
@@ -2098,7 +2218,9 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in launches_by_path.items()},
             "max_abs_err": errs[name],
             **summed(home_rows, home_path[name]),
-            "bound_by": "bytes", "library_ms": lib_ms.get(home_form.get(name)),
+            "bound_by": ("operations" if any(r["bound_by"] == "operations" for r in home_rows)
+                         else "bytes"),
+            "library_ms": lib_ms.get(home_form.get(name)),
             "forms": path_rows + other_rows + whole_rows,
         }
         if name in home_form:
@@ -2108,8 +2230,9 @@ def main() -> int:
         if name == "median_probe":
             entry["sweep_ms"] = {f"{m} S{sp}": v for (m, sp), v in probe_table.items()}
         if whole_rows and home_rows is not whole_rows:
-            entry["whole"] = {**summed(whole_rows, WHOLE_HOME),
-                              "launches": launches_by_path[WHOLE_HOME][name]}
+            w_path = whole_home.get(name, WHOLE_HOME)
+            entry["whole"] = {**summed(whole_rows, w_path),
+                              "launches": launches_by_path[w_path][name]}
         entries.append(entry)
     build.check_bounded("phase 5", bound_flag)
     say(f"phase 5: ms per call by path {json.dumps(e2e)} on {card}")

@@ -9,6 +9,8 @@ neither jax nor tpu_inspect, so it also runs on a machine without JAX:
 Tolerance is exact equality: every kernel computes integer results.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +31,12 @@ from tpu_inspect_torch.ops.cc import (
     largest_component_sums,
 )
 from tpu_inspect_torch.ops.flood import propagate, propagate_plain
-from tpu_inspect_torch.ops.gaussian import gaussian_blur_u8
+from tpu_inspect_torch.ops.gaussian import (
+    adaptive_gaussian_mean,
+    adaptive_gaussian_mean_plain,
+    gaussian_blur_u8,
+    gaussian_blur_u8_plain,
+)
 from tpu_inspect_torch.ops.fused import seg_roi_tail, seg_roi_tail_plain, seg_tail, seg_tail_plain
 from tpu_inspect_torch.ops.median import (
     _median_residual,
@@ -49,7 +56,11 @@ from tpu_inspect_torch.ops.morphology import (
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
 from tpu_inspect_torch.kernels import build, error_flag
-from tpu_inspect_torch.ops.threshold import otsu_threshold
+from tpu_inspect_torch.ops.threshold import (
+    adaptive_threshold_inv,
+    adaptive_threshold_inv_plain,
+    otsu_threshold,
+)
 from tpu_inspect_torch.streaming import stream_inspect
 from tpu_inspect_torch.synthetic import make_mold_image, serpentine_plane, standard_workload
 from tpu_inspect_torch.tools.median_probe import MODES, STRIPS, probe
@@ -66,13 +77,13 @@ def cuda():
 
 @pytest.mark.parametrize("block", [9, 51, 119, 201])
 def test_adaptive_mean_matches_cpu(cuda, block):
-    """The adaptive Gaussian mean (float64 torch ops on both devices, the
-    column pass's fused multiply-adds rounded through round-to-odd) on the
-    card equals ``device="cpu"``: unit 0 of the fuzz tool's seed 3014 trial
-    91 blurred at 25 (where the mean first differed from OpenCV's), and
-    random planes of widths 1, 33 and 316 with a flat and a saturated one."""
+    """The adaptive Gaussian mean on the card (kernel N, one fused
+    multiply-add instruction a step) equals ``device="cpu"`` (the plain
+    version, each fused multiply-add exact in float64): unit 0 of the fuzz
+    tool's seed 3014 trial 91 blurred at 25 (where the mean first differed
+    from OpenCV's), and random planes of widths 1, 33 and 316 with a flat
+    and a saturated one."""
     from tpu_inspect_torch.imageio import crops_for_grid
-    from tpu_inspect_torch.ops.gaussian import adaptive_gaussian_mean
     from tpu_inspect_torch.tools import fuzz_parity as fp
 
     t = fp.trials(3014, 1, start=91)[0]
@@ -85,6 +96,76 @@ def test_adaptive_mean_matches_cpu(cuda, block):
         got = adaptive_gaussian_mean(x.to(cuda), block)
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.cpu(), adaptive_gaussian_mean(x, block), rtol=0, atol=0)
+
+
+# edge shapes of kernels M and N: widths 1 and 31-33 (a warp's strip and
+# its neighbours), H = 1, and units narrower than the pad (numpy's reflect
+# reflects again there; the replicate border clamps)
+_HEAD_SHAPES = ((3, 40, 1), (2, 1, 64), (2, 37, 31), (1, 33, 32), (2, 29, 33), (1, 2, 2),
+                (1, 7, 2), (1, 1, 1))
+
+
+@functools.lru_cache(maxsize=1)
+def _workload_crops3() -> torch.Tensor:
+    """The standard workload's first 3 crops (made once: the workload's
+    image takes about a second to draw)."""
+    wl = standard_workload()
+    return gather_crops(torch.from_numpy(wl["image"]), torch.from_numpy(wl["origins"]),
+                        wl["unit_hw"])[:3].contiguous()
+
+
+def _head_planes(cuda, seed):
+    """Planes of the card's own generator at the edge shapes, a flat and a
+    saturated unit, and the standard workload's first 3 crops, raw and
+    blurred at 3 (the adaptive path's input)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    planes = [torch.randint(0, 256, s, generator=gen, device=cuda, dtype=torch.uint8)
+              for s in _HEAD_SHAPES]
+    planes[2][1] = 77
+    planes[4][1] = 255
+    crops = _workload_crops3().to(cuda)
+    return planes + [crops, gaussian_blur_u8_plain(crops, 3).contiguous()]
+
+
+@pytest.mark.parametrize("k,sigma", [(3, 0.0), (5, 0.0), (7, 0.0), (9, 0.0), (9, 1.7), (25, 0.0),
+                                     (31, 0.0)])
+def test_gauss_blur_kernel_matches_plain(cuda, k, sigma):
+    """Kernel M (the bit-exact u8 blur) against its plain version on the
+    card at every edge shape: one launch a call, exact."""
+    planes = _head_planes(cuda, k)
+    reset_launches()
+    for x in planes:
+        got = gaussian_blur_u8(x, k, sigma)
+        assert got.device.type == "cuda"
+        _assert_equal(got, gaussian_blur_u8_plain(x, k, sigma))
+    assert LAUNCHES["gauss_blur"] == len(planes)
+
+
+@pytest.mark.parametrize("block", [3, 9, 51, 119, 201])
+def test_adaptive_kernel_matches_plain(cuda, block):
+    """Kernel N in both modes (the mean; the BINARY_INV compare fused at C
+    -1 and 10) against the plain versions on the card at every edge shape:
+    one launch a call, exact."""
+    planes = _head_planes(cuda, block)
+    reset_launches()
+    for x in planes:
+        _assert_equal(adaptive_gaussian_mean(x, block), adaptive_gaussian_mean_plain(x, block))
+        for c in (-1, 10):
+            _assert_equal(adaptive_threshold_inv(x, block, c),
+                          adaptive_threshold_inv_plain(x, block, c))
+    assert LAUNCHES["adaptive"] == 3 * len(planes)
+
+
+def test_head_kernels_refuse_what_they_do_not_take(cuda):
+    """Kernels M and N take contiguous [U, H, W] uint8 planes and N an odd
+    block: anything else raises, with no fallback to the plain version."""
+    x = torch.zeros((2, 8, 9), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gaussian_blur_u8(x.transpose(1, 2), 3)
+    with pytest.raises(ValueError, match="uint8"):
+        adaptive_gaussian_mean(x.to(torch.int32), 3)
+    with pytest.raises(ValueError, match="odd"):
+        adaptive_threshold_inv(x, 4, 0)
 
 
 def _planes(rng, shape, p, cuda):

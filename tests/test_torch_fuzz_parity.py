@@ -46,6 +46,28 @@ def test_generator_is_deterministic_and_printable():
     assert fp.trials(14, 1, start=7)[0].line() == a[7].line()
 
 
+@pytest.mark.parametrize("method", ["otsu", "adaptive"])
+@pytest.mark.parametrize("blur", [0, 1, 2, 3, 31])
+def test_route_launches_count_the_head_kernels(method, blur):
+    """Kernel M once on every seg route where ``as_odd(gaussian_blur) > 1``
+    (blur 1 rounds to a 1-tap window: no launch), Otsu twice for otsu and
+    kernel N once for adaptive; no defect or preview route runs the head;
+    the sharded segment pass needs the same kernels on every rank."""
+    seg = SegmentationParams(method=method, gaussian_blur=blur)
+    dp = DefectParams()
+    m = int(blur >= 2)
+    head = {"gauss_blur": m, "otsu": 2 * (method == "otsu"), "adaptive": int(method == "adaptive")}
+    routes = ("split seg", "whole seg") + (("chained",) if method == "otsu" else ())
+    for route in routes:
+        got = fp.route_launches(route, seg, dp)
+        assert {k: got[k] for k in head} == head, route
+    for route in ("split defect", "whole defect", "diag", "outline", "largest"):
+        got = fp.route_launches(route, seg, dp)
+        assert not any(got[k] for k in head), route
+    assert set(fp.head_launches(seg)) == {k for k, v in head.items() if v}
+    assert {"gauss_blur", "adaptive"} <= set(fp.USER_KERNELS)
+
+
 def test_smoke_phase_reaches_every_class_and_gate_side():
     ts = fp.trials(fp.SMOKE_SEED, fp.SMOKE_TRIALS)
     assert {t.cls for t in ts} == set(fp.CLASSES)

@@ -1,6 +1,6 @@
 """The kernel rig ``tpu_inspect_torch.tools.kernel_bench`` on the CPU, at
-its small size: every form of kernels B, D, E, F, G, H, I and J (and the
-launch floor) builds its planes through the port's engine, equals its
+its small size: every form of kernels B, D, E, F, G, H, I, J, M and N (and
+the launch floor) builds its planes through the port's engine, equals its
 plain version exactly and gets a time (a host wall here, labelled so;
 device times come from the card)."""
 

@@ -35,7 +35,11 @@ from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
 from tpu_inspect_torch.ops import cc, hole_fill, morphology, threshold
 from tpu_inspect_torch.ops._contour_table import CONTOUR_TABLE_X2
-from tpu_inspect_torch.ops.gaussian import fixed_gaussian_kernel, gaussian_blur_u8
+from tpu_inspect_torch.ops.gaussian import (
+    fixed_gaussian_kernel,
+    gaussian_blur_u8,
+    gaussian_blur_u8_plain,
+)
 from tpu_inspect_torch.synthetic import make_mold_image, sample_grid_params
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -119,9 +123,11 @@ def test_gaussian_blur_matches_reference(k):
     rng = np.random.RandomState(k)
     x = rng.randint(0, 256, (3, 20, 23), dtype=np.uint8)
     kk = k if k % 2 else k + 1
-    got = gaussian_blur_u8(_t(x), kk).numpy()
     ref = np.asarray(jgauss.gaussian_blur_u8(jnp.asarray(x), kk))
-    np.testing.assert_array_equal(got, ref)
+    # the plain version (kernel M's contract) and the public name on a CPU
+    # tensor, which runs it
+    np.testing.assert_array_equal(gaussian_blur_u8_plain(_t(x), kk).numpy(), ref)
+    np.testing.assert_array_equal(gaussian_blur_u8(_t(x), kk).numpy(), ref)
 
 
 def test_histogram_and_otsu_match_reference():

@@ -2,8 +2,9 @@
 NVIDIA H100.
 
 The JAX/Pallas package :mod:`tpu_inspect` stays the reference; this package
-reproduces it bit-exactly with torch ops plus thirteen CUDA C++ kernels
-written for Hopper (``csrc/``, kernels A-L and the Otsu head kernel): the inspection paths
+reproduces it bit-exactly with torch ops plus fifteen CUDA C++ kernels
+written for Hopper (``csrc/``, kernels A-L and the head kernels: Otsu, M
+the u8 Gaussian blur, N the adaptive mean): the inspection paths
 (:func:`tpu_inspect_torch.engine.inspect_image` with the otsu/adaptive
 segmentation and threshold/canny defect methods, the chained seg+ROI tail,
 the whole-image route, ``defect_intermediates``), the session and UI

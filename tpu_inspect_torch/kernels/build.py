@@ -82,6 +82,10 @@ _SIGNATURES = {
     "tik_histogram": (_P, _P, _I, _L, _P),
     # hist, thr, U, scale, stream
     "tik_otsu_scan": (_P, _P, _I, ctypes.c_double, _P),
+    # x, taps, row index table, column index table, out, U, H, W, k, stream
+    "tik_gauss_blur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, taps, out, U, H, W, k, C, mode (0 mean, 1 BINARY_INV), stream
+    "tik_adaptive_mean": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

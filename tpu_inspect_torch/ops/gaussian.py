@@ -1,11 +1,19 @@
-"""Bit-exact u8 Gaussian blur (OpenCV's fixed-point path), batched [U, H, W].
+"""Bit-exact u8 Gaussian blur (OpenCV's fixed-point path) and the adaptive
+threshold's Gaussian local mean, batched [U, H, W].
 
 Port of :func:`tpu_inspect.ops.gaussian.gaussian_blur_u8`: the kernel is
 quantized to 8 fractional bits by cumulative rounding (taps sum to 256),
-both separable passes accumulate exactly in int32 shifted-slice sums, and
-the final >>16 rounds half-up. Border: BORDER_REFLECT_101, gathered through
-numpy-built reflect indices (``F.pad`` does not take integer tensors, and a
-float conv would run in TF32 on the card).
+both separable passes accumulate exactly in int32, and the final >>16
+rounds half-up. Border: BORDER_REFLECT_101, through numpy-built reflect
+indices (``F.pad`` does not take integer tensors, and a float conv would
+run in TF32 on the card).
+
+:func:`gaussian_blur_u8` launches kernel M (``csrc/gauss_blur.cu``) and
+:func:`adaptive_gaussian_mean` kernel N (``csrc/adaptive_mean.cu``) for
+CUDA tensors, one launch a call, and run their plain versions,
+:func:`gaussian_blur_u8_plain` and :func:`adaptive_gaussian_mean_plain`,
+for CPU tensors. The taps and index tables go to the card once per
+(k, sigma, device) and (n, pad, device), so a call waits for no copy.
 """
 
 from __future__ import annotations
@@ -14,6 +22,8 @@ import functools
 
 import numpy as np
 import torch
+
+from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes
 
 _SMALL_TAB = {
     1: [1.0],
@@ -43,11 +53,19 @@ def fixed_gaussian_kernel(k: int, sigma: float = 0.0) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _reflect101_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
-    """Indices of a BORDER_REFLECT_101 padded axis (numpy's 'reflect'),
-    kept per device, so a call on the card uploads them once and does not
-    wait for the copy again."""
+    """int32 indices of a BORDER_REFLECT_101 padded axis (numpy's 'reflect',
+    which reflects again where ``pad > n - 1``), kept per device, so a call
+    on the card uploads them once and does not wait for the copy again.
+    Kernel M reads the same tables the plain version gathers with."""
     idx = np.pad(np.arange(n), pad, mode="reflect")
-    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+    return torch.as_tensor(idx, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _blur_taps(k: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """Kernel M's int32 taps, :func:`fixed_gaussian_kernel` ``(k, sigma)``,
+    uploaded once per device."""
+    return torch.as_tensor(fixed_gaussian_kernel(k, sigma).astype(np.int32), device=device)
 
 
 def _sep_int_conv(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
@@ -69,12 +87,37 @@ def _sep_int_conv(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
     return out
 
 
-def gaussian_blur_u8(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch.Tensor:
-    """cv2.GaussianBlur(CV_8U, (k, k), sigma) bit-exact. x: [..., H, W] uint8."""
+def gaussian_blur_u8_plain(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch.Tensor:
+    """The plain PyTorch version of :func:`gaussian_blur_u8` (on any device;
+    it launches no kernel). x: [..., H, W] uint8."""
     if k <= 1:
         return x
     acc = _sep_int_conv(x, fixed_gaussian_kernel(k, sigma))
     return ((acc + 32768) >> 16).clamp(0, 255).to(torch.uint8)
+
+
+def gaussian_blur_u8(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch.Tensor:
+    """cv2.GaussianBlur(CV_8U, (k, k), sigma) bit-exact: kernel M for a
+    contiguous [U, H, W] uint8 CUDA tensor (one launch),
+    :func:`gaussian_blur_u8_plain` for a CPU one ([..., H, W]). ``k <= 1``
+    returns ``x``."""
+    k = int(k)
+    if k <= 1:
+        return x
+    if x.device.type == "cpu":
+        return gaussian_blur_u8_plain(x, k, sigma)
+    check_planes(x, "gaussian_blur_u8")
+    u, h, w = x.shape
+    out = torch.empty_like(x)
+    code = build.lib().tik_gauss_blur(
+        x.data_ptr(), _blur_taps(k, float(sigma), x.device).data_ptr(),
+        _reflect101_index(h, k // 2, x.device).data_ptr(),
+        _reflect101_index(w, k // 2, x.device).data_ptr(), out.data_ptr(), u, h, w, k,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("gaussian_blur_u8", code)
+    LAUNCHES["gauss_blur"] += 1
+    return out
 
 
 def _replicate_index(n: int, pad: int, device) -> torch.Tensor:
@@ -86,6 +129,19 @@ def _replicate_index(n: int, pad: int, device) -> torch.Tensor:
 # sigma <= 0 (the JAX package's copy of the kernel computes it, which its
 # uint8 path quantizes to the same taps, and its float path does not)
 _TAB_9 = np.array([4, 13, 30, 51, 60, 51, 30, 13, 4], np.float32) / np.float32(256)
+
+
+def _mean_kernel(k: int) -> np.ndarray:
+    """The adaptive mean's float32 taps: OpenCV's ``getGaussianKernel(k, 0,
+    CV_32F)``, its table at k = 9, else the computed kernel rounded once."""
+    return _TAB_9 if k == 9 else gaussian_kernel_f64(k).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _mean_taps(k: int, device: torch.device) -> torch.Tensor:
+    """Kernel N's float32 taps, :func:`_mean_kernel` ``(k)``, uploaded once per
+    device."""
+    return torch.as_tensor(_mean_kernel(k), device=device)
 
 
 def _fma32(a64: torch.Tensor, f: float, c: torch.Tensor) -> torch.Tensor:
@@ -106,15 +162,18 @@ def _fma32(a64: torch.Tensor, f: float, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
-def adaptive_gaussian_mean(x: torch.Tensor, block_size: int) -> torch.Tensor:
-    """The uint8 Gaussian local mean of cv2.adaptiveThreshold (GAUSSIAN_C):
+def adaptive_gaussian_mean_plain(x: torch.Tensor, block_size: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`adaptive_gaussian_mean` (on any
+    device; it launches no kernel), and kernel N's contract.
+
+    The uint8 Gaussian local mean of cv2.adaptiveThreshold (GAUSSIAN_C):
     OpenCV's float32 ``GaussianBlur`` with BORDER_REPLICATE, then cvRound
     (half to even) and saturation to uint8.
 
     Its float32 taps are OpenCV's ``getGaussianKernel(k, 0, CV_32F)``: the
     computed kernel, or for k = 9 OpenCV's table. OpenCV's separable float
     filters (its code dispatched for an x86-64 host with AVX2 and FMA3)
-    round as follows, and so does this function on both devices: the row
+    round as follows, and so do this function and kernel N: the row
     pass runs the taps in order as fused multiply-adds from 0; the column
     pass (a symmetric kernel) starts from the centre tap's product and adds
     each pair of taps, the two rows summed in float32 first, as a fused
@@ -131,7 +190,7 @@ def adaptive_gaussian_mean(x: torch.Tensor, block_size: int) -> torch.Tensor:
     k = int(block_size)
     if k <= 1:
         return x
-    ker = _TAB_9 if k == 9 else gaussian_kernel_f64(k).astype(np.float32)
+    ker = _mean_kernel(k)
     pad = k // 2
     h, w = x.shape[-2], x.shape[-1]
     p = x.to(torch.float64).index_select(-1, _replicate_index(w, pad, x.device))
@@ -144,3 +203,36 @@ def adaptive_gaussian_mean(x: torch.Tensor, block_size: int) -> torch.Tensor:
         pair = q[..., pad + t : pad + t + h, :] + q[..., pad - t : pad - t + h, :]
         out = _fma32(pair.double(), float(ker[pad + t]), out)
     return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+
+def _adaptive_launch(x: torch.Tensor, block_size: int, C: int, compare: bool,
+                     name: str) -> torch.Tensor:
+    """One launch of kernel N on a contiguous [U, H, W] uint8 CUDA tensor:
+    the mean (``compare`` False) or the BINARY_INV compare against ``C``
+    fused behind it. ``block_size`` odd, at least 1."""
+    check_planes(x, name)
+    k = int(block_size)
+    if k < 1 or k % 2 == 0:
+        raise ValueError(f"{name}: block_size must be odd and positive, got {k}")
+    u, h, w = x.shape
+    out = torch.empty_like(x)
+    code = build.lib().tik_adaptive_mean(
+        x.data_ptr(), _mean_taps(k, x.device).data_ptr(), out.data_ptr(), u, h, w, k, int(C),
+        int(compare), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(name, code)
+    LAUNCHES["adaptive"] += 1
+    return out
+
+
+def adaptive_gaussian_mean(x: torch.Tensor, block_size: int) -> torch.Tensor:
+    """The uint8 Gaussian local mean of cv2.adaptiveThreshold (GAUSSIAN_C):
+    kernel N for a contiguous [U, H, W] uint8 CUDA tensor (one launch),
+    :func:`adaptive_gaussian_mean_plain` for a CPU one. ``block_size <= 1``
+    returns ``x``."""
+    k = int(block_size)
+    if k <= 1:
+        return x
+    if x.device.type == "cpu":
+        return adaptive_gaussian_mean_plain(x, k)
+    return _adaptive_launch(x, k, 0, False, "adaptive_gaussian_mean")

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes
-from tpu_inspect_torch.ops.gaussian import adaptive_gaussian_mean
+from tpu_inspect_torch.ops.gaussian import _adaptive_launch, adaptive_gaussian_mean_plain
 
 _FLT_EPSILON = 1.1920928955078125e-07  # FLT_EPSILON, as used by OpenCV
 
@@ -149,11 +149,21 @@ def threshold_binary(x: torch.Tensor, thr: int) -> torch.Tensor:
     return torch.where(x.to(torch.int32) > int(thr), 255, 0).to(torch.uint8)
 
 
+def adaptive_threshold_inv_plain(x: torch.Tensor, block_size: int, C: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`adaptive_threshold_inv` (on any
+    device; it launches no kernel)."""
+    mean = adaptive_gaussian_mean_plain(x, block_size).to(torch.int32)
+    diff = x.to(torch.int32) - mean
+    return torch.where(diff <= -int(C), 255, 0).to(torch.uint8)
+
+
 def adaptive_threshold_inv(x: torch.Tensor, block_size: int, C: int) -> torch.Tensor:
     """cv2.adaptiveThreshold(GAUSSIAN_C, BINARY_INV): 255 where
     ``x - mean <= -C`` in int32, with the uint8 Gaussian local mean
     (OpenCV's lookup-table form, ``threshold.py:148-160`` of the JAX
-    package)."""
-    mean = adaptive_gaussian_mean(x, block_size).to(torch.int32)
-    diff = x.to(torch.int32) - mean
-    return torch.where(diff <= -int(C), 255, 0).to(torch.uint8)
+    package). Kernel N with the compare fused for a contiguous [U, H, W]
+    uint8 CUDA tensor (one launch; ``block_size`` odd),
+    :func:`adaptive_threshold_inv_plain` for a CPU one."""
+    if x.device.type == "cpu":
+        return adaptive_threshold_inv_plain(x, block_size, C)
+    return _adaptive_launch(x, block_size, C, True, "adaptive_threshold_inv")

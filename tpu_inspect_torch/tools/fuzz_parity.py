@@ -97,7 +97,8 @@ SHARDED_EVERY, SHARDED_AT = 20, 5
 WHOLE_BIG_EVERY, WHOLE_BIG_AT = 25, 9
 # the kernels a user path launches (kernel L serves the median-probe tool)
 USER_KERNELS = ("seg_tail", "median_residual", "blob_filter", "propagate", "label", "cc_stats",
-                "blob_select", "median_blur", "morph", "label_stats", "seg_roi_tail", "otsu")
+                "blob_select", "median_blur", "morph", "label_stats", "seg_roi_tail", "otsu",
+                "gauss_blur", "adaptive")
 # trials from which every user-path kernel must have launched on the card
 COVER_TRIALS = 20
 # chip_smoke.py's fuzz phase: a fixed seed and trial count
@@ -444,15 +445,30 @@ def _cand(dp: DefectParams) -> Counter:
     return Counter(median_blur=1) if k * k >= 2048 else Counter(median_residual=1)
 
 
+def head_launches(seg: SegmentationParams) -> Counter:
+    """The head of every segmentation route (``engine._seg_mask``,
+    ``_segment_roi``, ``parallel.strips.segment_image_sharded``): M (the
+    blur) where ``as_odd(gaussian_blur) > 1`` (k = 1 returns the plane),
+    then Otsu (histogram, scan) for otsu or N (the adaptive compare) for
+    adaptive."""
+    seg = seg.validated()
+    head = Counter(otsu=2) if seg.method == "otsu" else Counter(adaptive=1)
+    if as_odd(seg.gaussian_blur) > 1:
+        head["gauss_blur"] = 1
+    return head
+
+
 def route_launches(route: str, seg: SegmentationParams, dp: DefectParams,
                    roi_empty: bool = False, found: bool = True) -> Counter:
     """The launches of one call, by route (``engine.py``):
 
-    - ``split seg``: Otsu (histogram, scan) for otsu; A (seg tail);
+    - ``split seg``: the head (:func:`head_launches`: M, then Otsu or N);
+      A (seg tail);
     - ``split defect``: A (ROI tail), B | H | D (candidates), C;
-    - ``chained``: Otsu, K (seg tail + zone + ROI tail), B | H | D, C;
-    - ``whole seg``: Otsu for otsu; I (head + close/open), D (border
-      flood), E, F;
+    - ``chained`` (otsu only): the head, K (seg tail + zone + ROI tail),
+      B | H | D, C;
+    - ``whole seg``: the head; I (head + close/open), D (border flood), E,
+      F;
     - ``whole defect``: I (ROI erode), E, F; B | H | D; I (ROI AND + open),
       D (exterior), E (fill labels), D (top-level blobs), G;
     - ``diag``: A (ROI tail); unless the ROI is empty, B | H | D, I (ROI
@@ -461,15 +477,15 @@ def route_launches(route: str, seg: SegmentationParams, dp: DefectParams,
       the preview is not empty (``found``);
     - ``largest``: I (erode), J.
     """
-    otsu = Counter(otsu=2) if seg.method == "otsu" else Counter()
+    head = head_launches(seg)
     if route == "split seg":
-        return otsu + Counter(seg_tail=1)
+        return head + Counter(seg_tail=1)
     if route == "split defect":
         return Counter(seg_tail=1, blob_filter=1) + _cand(dp)
     if route == "chained":
-        return otsu + Counter(seg_roi_tail=1, blob_filter=1) + _cand(dp)
+        return head + Counter(seg_roi_tail=1, blob_filter=1) + _cand(dp)
     if route == "whole seg":
-        return otsu + Counter(morph=1, propagate=1, label=1, cc_stats=1)
+        return head + Counter(morph=1, propagate=1, label=1, cc_stats=1)
     if route == "whole defect":
         return Counter(morph=2, label=2, cc_stats=1, propagate=2, blob_select=1) + _cand(dp)
     if route == "diag":
@@ -483,7 +499,8 @@ def route_launches(route: str, seg: SegmentationParams, dp: DefectParams,
 
 
 # kernels each rank of a sharded call must launch at least once (the strip
-# floods and exchanges vary in count)
+# floods and exchanges vary in count); the segment pass also the head's
+# (head_launches)
 SHARDED_KERNELS = {
     "segment": ("morph", "propagate"),
     "defect threshold": ("label", "cc_stats", "propagate", "blob_select", "morph"),
@@ -786,7 +803,7 @@ def run_sharded(r: _Runner):
     ins = engine.detect_defects_batch(image[None], seg_cpu[None], t.dp, device="cpu")
     want = {"mask": seg_cpu[None], "defect_mask": ins.defect_masks[:1], "found": ins.valid[:1],
             "area": ins.areas[:1].astype(np.int64), "verdict": ins.verdicts[:1]}
-    seg_need = SHARDED_KERNELS["segment"] + (("otsu",) if t.seg.method == "otsu" else ())
+    seg_need = SHARDED_KERNELS["segment"] + tuple(head_launches(t.seg))
     def_need = SHARDED_KERNELS[f"defect {t.dp.method}"] + tuple(_cand(t.dp))
     for rank, (mask, (dm, found, area, verdict), l_seg, l_def) in enumerate(ranks):
         got = {"mask": mask[None], "defect_mask": dm[None], "found": np.array([found]),

@@ -1,6 +1,6 @@
-"""Time one form of kernel B, D, E, F, G, H, I or J at a time, checked exact
-against its plain version: the rig to iterate on a kernel without a whole
-chip_smoke run.
+"""Time one form of kernel B, D, E, F, G, H, I, J, M or N at a time, checked
+exact against its plain version: the rig to iterate on a kernel without a
+whole chip_smoke run.
 
 The port of ``tools/kernel_bench.py`` (which times the JAX package's Pallas
 kernels one by one). Its planes are ``chip_smoke.py``'s: the standard
@@ -27,8 +27,9 @@ default is ``tpu_inspect_torch.ops.median.strip_rows``).
 To time an older tree's kernels on the same forms, run this file from the
 older tree's root with ``PYTHONPATH=.``: kernel I's forms then drive that
 tree's byte-plane chain (one launch a stage) with the head and the ``> 0``
-as torch ops, as its callers ran them, and J's wrapper without a flag
-argument reads its own flag each call.
+as torch ops, as its callers ran them, J's wrapper without a flag
+argument reads its own flag each call, and M's and N's forms time a tree
+without them on its torch-op blur and adaptive threshold.
 
 The ``launch floor`` form is a one-thread kernel storing one byte: the
 time no one-unit launch (kernel J's preview unit) can beat.
@@ -103,6 +104,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     whole = image[None].contiguous()
     seg_w = engine._segment(whole, seg, excl, None, True)[0]
     x_w = gaussian_blur_u8(whole, seg.gaussian_blur)
+    x = gaussian_blur_u8(crops, seg.gaussian_blur)
     thr_w = otsu_threshold(x_w)
     seg_pre_w = tail_mask(x_w, close_open_stages(seg.morph_kernel), thr_w)
     seg_fill_w = seg_pre_w | exterior_background(seg_pre_w).logical_not()
@@ -146,7 +148,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
         "seg1": seg1, "seg1_in": largest_component(tail_mask(seg1, rect_erode_stages(dp.erode_px)))[0],
         "seg_lab_w": label_components(seg_fill_w), "roi_lab_w": label_components(roi_pre_w),
         "iso_w": iso_w, "iso_lab_w": label_components(iso_w),
-        "crops": crops, "whole": whole, "crop1": crop1, **rows,
+        "crops": crops, "whole": whole, "crop1": crop1, "x": x, **rows,
         "roi_rows21_1": _roi_rows_bytes(crop1, 21, rows["lo1"], rows["hi1"]),
         **{f"roi_rows{k}": _roi_rows_bytes(crops, k, rows["lo"], rows["hi"]) for k in (21, 45)},
         **{f"roi_rows{k}_w": _roi_rows_bytes(whole, k, rows["lo_w"], rows["hi_w"])
@@ -180,7 +182,8 @@ def _stages(name: str):
 # k it takes; one unit as the interactive calls take it), then D's four
 # paths (the 48 units' Canny hysteresis and the whole-image route's three),
 # E's, H's (median_k = 47, the engine's smallest k on H, and 101; one
-# unit; 47 on the whole plane), I's, F's, G's and J's, and the launch floor
+# unit; 47 on the whole plane), I's, F's, G's, J's, M's and N's, and the
+# launch floor
 FORMS = {
     "B 48u k21 roi rows": ("median_residual", ("roi_rows21", "lo", "hi"),
                            lambda f, p, s: f(p["crops"], 21, THR, p["lo"], p["hi"], strip=s)),
@@ -249,6 +252,13 @@ FORMS = {
     # one-unit launch
     "J preview unit": ("label_stats", ("j_one",), lambda f, p, s: f(p["j_one"])),
     "J 48u eroded, empty + full": ("label_stats", ("j_plane",), lambda f, p, s: f(p["j_plane"])),
+    # M: the blur at the path's k = 3 on the 48 units and on the whole
+    # plane; N: the adaptive path's compare (C 10) on the 48 blurred units
+    # at the default block 51 and at 201, the largest
+    "M 48u k3": ("gauss_blur", ("crops",), lambda f, p, s: f(p["crops"], 3)),
+    "M whole k3": ("gauss_blur", ("whole",), lambda f, p, s: f(p["whole"], 3)),
+    "N 48u block51": ("adaptive", ("x",), lambda f, p, s: f(p["x"], 51, 10)),
+    "N 48u block201": ("adaptive", ("x",), lambda f, p, s: f(p["x"], 201, 10)),
     "launch floor": ("launch_floor", (), lambda f, p, s: f(p["whole"].device)),
 }
 # the kernels whose forms take a strip length
@@ -268,7 +278,7 @@ def kernels() -> dict:
         median_residual_mask_plain,
     )
 
-    from tpu_inspect_torch.ops import morphology
+    from tpu_inspect_torch.ops import gaussian, morphology, threshold
     from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
     from tpu_inspect_torch.ops.cc import (
         component_stats,
@@ -284,6 +294,10 @@ def kernels() -> dict:
     chain_plain = getattr(morphology, "morph_chain_plain", None)
     if chain_plain is None:  # an older tree: byte planes in and out
         chain, chain_plain = _byte_chain(chain), _byte_chain(morphology.apply_stages)
+    # a tree without M and N: its torch-op versions are the timed ones
+    blur_plain = getattr(gaussian, "gaussian_blur_u8_plain", gaussian.gaussian_blur_u8)
+    adaptive_plain = getattr(threshold, "adaptive_threshold_inv_plain",
+                             threshold.adaptive_threshold_inv)
     return {"propagate": (propagate, propagate_plain, True),
             "label": (label_components, label_components_plain, True),
             "median_residual": (_median_residual, stripless(median_residual_mask_plain), False),
@@ -294,6 +308,8 @@ def kernels() -> dict:
             # an older tree's J takes no flag: it reads its own each call
             "label_stats": (largest_component_sums, largest_component,
                             "err" in inspect.signature(largest_component_sums).parameters),
+            "gauss_blur": (gaussian.gaussian_blur_u8, blur_plain, False),
+            "adaptive": (threshold.adaptive_threshold_inv, adaptive_plain, False),
             "launch_floor": (_launch_floor, _launch_floor_plain, False)}
 
 
