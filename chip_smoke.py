@@ -8,8 +8,9 @@ Run from the repository root with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build the fifteen CUDA kernels (A-L and the head kernels: Otsu, M the
-   u8 Gaussian blur, N the adaptive mean) from ``tpu_inspect_torch/csrc``
+2. build the sixteen CUDA kernels (A-L and the head kernels: Otsu, M the
+   u8 Gaussian blur, N the adaptive mean, O Canny's gradient, NMS and
+   thresholds) from ``tpu_inspect_torch/csrc``
    (one nvcc per source, all started together, sm_90a);
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
    bit-exact (tolerance 0): the standard workload's own stage inputs
@@ -42,11 +43,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on planes of the card's own generator at widths 1 and 31-33, H = 1 and
    units narrower than the pad (2x2, 7x2), on 3 crops of the workload and
    on the whole plane, and N on fault C7's unit (blur 25, block 119, C -1);
+   kernel O (the Canny head) at the default thresholds on the 48 crops and
+   on the whole plane, then at thresholds (1, 2), (12, 24), (127, 255) and
+   the swapped (255, 127) on M's and N's edge planes, at H = 1 and 2 by
+   widths 1 and 31-33, on planes whose edges lie on its tiles' edges and on
+   ``synthetic.canny_edge_planes`` (a checkerboard, a constant plane,
+   ridges and steps across each sector);
    kernels A and K at erode_px 200 and A, C and K on units too
    large for their shared-memory layout (the global-scratch variant);
    seeded random planes of odd sizes with an empty and a full unit, and a
-   long 1-px serpentine; then the ``cuda``-marked tests of kernels M and
-   N (their edge shapes; the adaptive mean on the card against the CPU)
+   long 1-px serpentine; then the ``cuda``-marked tests of kernels M, N
+   and O (their edge shapes; the adaptive mean on the card against the CPU)
    and of the Otsu kernel,
    of the redesigned A, K and C, of the redesigned D and E, of the
    redesigned B and H and of the redesigned I and F
@@ -425,7 +432,7 @@ SHARDED_KERNELS = {
     "segment": ("gauss_blur", "otsu", "morph", "propagate"),
     "defect threshold": ("morph", "median_residual", "label", "cc_stats", "propagate",
                          "blob_select"),
-    "defect canny": ("morph", "label", "cc_stats", "propagate", "blob_select"),
+    "defect canny": ("morph", "label", "cc_stats", "propagate", "blob_select", "canny_head"),
 }
 
 
@@ -704,7 +711,7 @@ def main() -> int:
     from tpu_inspect_torch.kernels import LAUNCHES, build, error_flag, reset_launches
     from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain, candidate_mask
     from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
-    from tpu_inspect_torch.ops.canny import canny_planes, canny_u8
+    from tpu_inspect_torch.ops.canny import canny_planes, canny_planes_plain, canny_u8
     from tpu_inspect_torch.ops.contour import fill_regions
     from tpu_inspect_torch.ops.cc import (
         component_stats,
@@ -757,6 +764,7 @@ def main() -> int:
     from tpu_inspect_torch.tools import fuzz_parity, median_probe
     from tpu_inspect_torch.ui import UIServer
     from tpu_inspect_torch.synthetic import (
+        canny_edge_planes,
         make_mold_image,
         serpentine_plane,
         standard_workload,
@@ -922,6 +930,9 @@ def main() -> int:
         "adaptive": [
             (f"48 units, block {ad_block}, C {ad_c}", lambda f: f(x, ad_block, ad_c), (x,)),
         ],
+        "canny_head": [
+            (f"48 units, low {lo_c}, high {hi_c}", lambda f: f(crops, lo_c, hi_c), (crops,)),
+        ],
     }
     # units too large for kernels A's, C's and K's shared-memory layout:
     # their global-scratch variant
@@ -1040,6 +1051,9 @@ def main() -> int:
         "adaptive": [
             (f"whole plane, block {ad_block}, C {ad_c}", lambda f: f(x_w, ad_block, ad_c), (x_w,)),
         ],
+        "canny_head": [
+            (f"whole plane, low {lo_c}, high {hi_c}", lambda f: f(whole, lo_c, hi_c), (whole,)),
+        ],
     }
     # kernel N's floating operations a form does (its bound is the larger
     # of these at the float32 rate and its bytes): at block k, k FMAs, a
@@ -1126,6 +1140,7 @@ def main() -> int:
         "otsu": (otsu_threshold, otsu_threshold_plain),
         "gauss_blur": (gaussian_blur_u8, gaussian_blur_u8_plain),
         "adaptive": (adaptive_fn, adaptive_fn_plain),
+        "canny_head": (canny_planes, canny_planes_plain),
     }
 
     def compare(name, label, got, ref):
@@ -1277,6 +1292,27 @@ def main() -> int:
         f"the compare) bit-exact vs plain in {n_head + 2} cases: widths 1 and 31-33, H = 1, "
         f"2x2 and 7x2 units, workload crops, the whole plane, and C7's unit "
         f"{tuple(c7.shape)} (pixel (275, 12): {int(m7[0, 275, 12])})")
+    # kernel O at its edges: M's and N's edge planes, H = 1 and 2 by widths
+    # 1 and 31-33, planes whose edges lie on its 32x64 tiles' edges (or one
+    # past), and the sector and tie planes, at the path's thresholds for
+    # threshold 0, 24 and 255 and a swapped pair
+    canny_edge = edge + [
+        torch.randint(0, 256, sh, generator=gen, device=dev, dtype=torch.uint8)
+        for sh in [(2, hh, ww) for hh in (1, 2) for ww in (1, 31, 32, 33)]
+        + [(1, 32, 64), (2, 33, 65), (1, 64, 128)]]
+    canny_edge += [torch.from_numpy(canny_edge_planes(hh, ww, seed=hh)).to(dev)
+                   for hh, ww in ((37, 45), (64, 128))]
+    n_canny = 0
+    for lo_e, hi_e in ((1, 2), (12, 24), (127, 255), (255, 127)):
+        for pl in canny_edge:
+            errs["canny_head"] = max(errs["canny_head"], compare(
+                "canny_head", f"low {lo_e}, high {hi_e}, {tuple(pl.shape)}",
+                canny_planes(pl, lo_e, hi_e), canny_planes_plain(pl, lo_e, hi_e)))
+            n_canny += 1
+    torch.cuda.synchronize()
+    say(f"phase 3: canny_head bit-exact vs plain in {n_canny} cases: H = 1 and 2 by widths 1 "
+        f"and 31-33, tile-edge planes, the sector and tie planes, workload crops, at "
+        f"thresholds (1, 2), (12, 24), (127, 255) and (255, 127)")
     # kernel J beyond the paths' units: 2x401x421 and 1x1024x1024 (bands in
     # shared memory), and 1x8x131072, whose band slots (8 bytes a 2x2 block)
     # exceed a block's shared memory: the global-scratch form
@@ -1325,15 +1361,16 @@ def main() -> int:
     # first in the last odd row or column, one over many chunks, a whole
     # capture whose sums pass 2^31), the adaptive mean's float64 ops on the
     # card against the CPU (fault C7's unit, blocks 9-201), and the sync
-    # checks, kernels M and N at their edge shapes, each against its plain
-    # version; the files' other tests repeat
+    # checks, kernels M, N and O at their edge shapes (O also on the 48
+    # crops and the whole plane), each against its plain version; the
+    # files' other tests repeat
     # this script's own checks
     mark("phase 3: the cuda-marked tests start")
     tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
              "tests/test_torch_median_hist.py", "tests/test_torch_cluster.py"]
     selected = ("otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist "
                 "or mask_chain or cc_stats_ or test_torch_cluster or public_name or adaptive_mean "
-                "or gauss_blur_kernel or adaptive_kernel or head_kernels")
+                "or gauss_blur_kernel or adaptive_kernel or head_kernels or canny_head_kernel")
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
          "--noconftest", "-p", "no:cacheprovider"],
@@ -1353,7 +1390,7 @@ def main() -> int:
     shifted_img = make_mold_image(grid, (3000, 4096), seed=1, shift=(7, -4))
     expect = {
         "threshold": ("seg_tail", "median_residual", "blob_filter"),
-        "canny": ("seg_tail", "propagate", "blob_filter"),
+        "canny": ("seg_tail", "canny_head", "propagate", "blob_filter"),
     }
     launches_by_path = {}
     cpu_runs = {}  # path -> the CPU run's results, held against the session's
@@ -1385,7 +1422,8 @@ def main() -> int:
             if (launches["seg_tail"] < 2 or any(launches[n] < 1 for n in expect[def_m])
                     or launches["otsu"] != (2 if seg_m == "otsu" else 0)
                     or launches["adaptive"] != (seg_m == "adaptive")
-                    or launches["gauss_blur"] != 1):
+                    or launches["gauss_blur"] != 1
+                    or launches["canny_head"] != (def_m == "canny")):
                 fail(f"{path}: the path missed a kernel, launches {launches}")
             for field in ("masks", "centroids", "centroid_valid", "shifts"):
                 a, b = getattr(s_gpu, field)[:n_cpu], getattr(s_cpu, field)
@@ -1477,12 +1515,13 @@ def main() -> int:
     def route_launches(path, launches, expect):
         """Fail unless every kernel of ``expect`` launched on the path,
         kernels A and C never, kernel I once a chain (the seg tail's; the
-        ROI's and the candidates' with a defect pass), F once a tail and M
-        once (the one seg pass)."""
+        ROI's and the candidates' with a defect pass), F once a tail, M
+        once (the one seg pass) and O once on a Canny defect pass."""
         launches_by_path[path] = launches
         chains = {"morph": 3, "cc_stats": 2} if "blob_select" in expect else {
             "morph": 1, "cc_stats": 1}
         chains["gauss_blur"] = 1
+        chains["canny_head"] = int("canny_head" in expect)
         if (any(launches[n] < 1 for n in expect) or launches["seg_tail"]
                 or launches["blob_filter"] or any(launches[n] != c for n, c in chains.items())):
             fail(f"{path}: not the whole-image route, launches {launches}")
@@ -1499,7 +1538,7 @@ def main() -> int:
 
     seg_kernels = ("gauss_blur", "otsu", "propagate", "label", "cc_stats")
     def_kernels = {"threshold": seg_kernels + ("median_residual", "blob_select"),
-                   "canny": seg_kernels + ("blob_select",)}
+                   "canny": seg_kernels + ("blob_select", "canny_head")}
 
     def route_kernels(seg_m, def_m):
         """The kernels a whole-image combo must launch (the Otsu kernel for
@@ -2172,6 +2211,8 @@ def main() -> int:
         "adaptive": ("tpu_inspect_torch/csrc/adaptive_mean.cu",
                      "none (XLA ops, tpu_inspect/ops/gaussian.py:96-125, "
                      "tpu_inspect/ops/threshold.py:148-160)"),
+        "canny_head": ("tpu_inspect_torch/csrc/canny_head.cu",
+                       "none (XLA ops, tpu_inspect/ops/canny.py:28-47, :87-122)"),
     }
     # further TPU kernels whose function a kernel serves (whole-image
     # counterparts of tiled TPU kernels, and same-function resident ones)
@@ -2190,10 +2231,11 @@ def main() -> int:
         "blob_select": WHOLE_HOME, "median_blur": BIG_K_HOME, "morph": WHOLE_HOME,
         "label_stats": SESSION_HOME, "seg_roi_tail": CHAIN_HOME, "median_probe": PROBE_HOME,
         "otsu": "otsu/threshold reference", "gauss_blur": "otsu/threshold reference",
-        "adaptive": "adaptive/threshold reference",
+        "adaptive": "adaptive/threshold reference", "canny_head": "otsu/canny reference",
     }
     # the whole-image path of each kernel's whole-plane forms
-    whole_home = {"adaptive": "whole inspect_image adaptive/threshold"}
+    whole_home = {"adaptive": "whole inspect_image adaptive/threshold",
+                  "canny_head": "whole inspect_image otsu/canny"}
     # kernel I's top-level numbers are its 13x13 erode form on the whole
     # plane, the form with a library yardstick (one of its launches there);
     # kernel L's its baseline at kernel B's strip

@@ -20,7 +20,7 @@ from tpu_inspect_torch import engine as teng
 from tpu_inspect_torch.kernels import LAUNCHES, reset_launches
 from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain
 from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
-from tpu_inspect_torch.ops.canny import canny_planes, canny_u8
+from tpu_inspect_torch.ops.canny import canny_planes, canny_planes_plain, canny_u8
 from tpu_inspect_torch.ops.contour import fill_regions
 from tpu_inspect_torch.ops.cc import (
     component_stats,
@@ -62,7 +62,12 @@ from tpu_inspect_torch.ops.threshold import (
     otsu_threshold,
 )
 from tpu_inspect_torch.streaming import stream_inspect
-from tpu_inspect_torch.synthetic import make_mold_image, serpentine_plane, standard_workload
+from tpu_inspect_torch.synthetic import (
+    canny_edge_planes,
+    make_mold_image,
+    serpentine_plane,
+    standard_workload,
+)
 from tpu_inspect_torch.tools.median_probe import MODES, STRIPS, probe
 
 pytestmark = pytest.mark.cuda
@@ -106,12 +111,19 @@ _HEAD_SHAPES = ((3, 40, 1), (2, 1, 64), (2, 37, 31), (1, 33, 32), (2, 29, 33), (
 
 
 @functools.lru_cache(maxsize=1)
-def _workload_crops3() -> torch.Tensor:
-    """The standard workload's first 3 crops (made once: the workload's
-    image takes about a second to draw)."""
+def _workload_planes() -> tuple[torch.Tensor, torch.Tensor]:
+    """The standard workload's 48 crops and its image as one 1x3000x4096
+    unit, on the CPU (made once: the workload's image takes about a second
+    to draw)."""
     wl = standard_workload()
-    return gather_crops(torch.from_numpy(wl["image"]), torch.from_numpy(wl["origins"]),
-                        wl["unit_hw"])[:3].contiguous()
+    image = torch.from_numpy(wl["image"])
+    crops = gather_crops(image, torch.from_numpy(wl["origins"]), wl["unit_hw"])
+    return crops.contiguous(), image[None].contiguous()
+
+
+def _workload_crops3() -> torch.Tensor:
+    """The standard workload's first 3 crops."""
+    return _workload_planes()[0][:3].contiguous()
 
 
 def _head_planes(cuda, seed):
@@ -157,8 +169,9 @@ def test_adaptive_kernel_matches_plain(cuda, block):
 
 
 def test_head_kernels_refuse_what_they_do_not_take(cuda):
-    """Kernels M and N take contiguous [U, H, W] uint8 planes and N an odd
-    block: anything else raises, with no fallback to the plain version."""
+    """Kernels M, N and O take contiguous [U, H, W] uint8 planes and N an
+    odd block: anything else raises, with no fallback to the plain
+    version."""
     x = torch.zeros((2, 8, 9), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         gaussian_blur_u8(x.transpose(1, 2), 3)
@@ -166,6 +179,48 @@ def test_head_kernels_refuse_what_they_do_not_take(cuda):
         adaptive_gaussian_mean(x.to(torch.int32), 3)
     with pytest.raises(ValueError, match="odd"):
         adaptive_threshold_inv(x, 4, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        canny_planes(x.transpose(1, 2), 12, 24)
+    with pytest.raises(ValueError, match="uint8"):
+        canny_u8(x.to(torch.int32), 12, 24)
+
+
+# kernel O's edge shapes: H = 1 and 2 at widths 1 and 31-33, Hx1, and
+# planes whose edges lie exactly on its 32x64 tiles' edges (or one past)
+_CANNY_SHAPES = tuple((2, hh, ww) for hh in (1, 2) for ww in (1, 31, 32, 33)) + (
+    (3, 40, 1), (1, 1, 1), (1, 32, 64), (1, 64, 128), (2, 33, 65), (1, 31, 63), (1, 96, 129))
+
+
+@pytest.mark.parametrize("low,high", [(1, 2), (12, 24), (127, 255), (255, 127)])
+def test_canny_head_kernel_matches_plain(cuda, low, high):
+    """Kernel O (Sobel, the L1 magnitude, NMS and both thresholds in one
+    launch) against its plain version on the card: the standard workload's
+    48 crops, the whole 3000x4096 capture, every edge shape (random planes
+    of the card's generator with a checkerboard unit), the sector and tie
+    planes of ``synthetic.canny_edge_planes`` at two sizes; one launch a
+    call, exact. ``canny_u8`` on the crops launches O and D once each, and
+    its first 3 units equal ``device="cpu"``'s."""
+    gen = torch.Generator(device=cuda).manual_seed(low + high)
+    planes = [torch.randint(0, 256, s, generator=gen, device=cuda, dtype=torch.uint8)
+              for s in _CANNY_SHAPES]
+    for pl in planes:
+        pl[-1] = ((torch.arange(pl.shape[1], device=cuda)[:, None]
+                   + torch.arange(pl.shape[2], device=cuda)[None, :]) % 2) * 255
+    crops, whole = (t.to(cuda) for t in _workload_planes())
+    planes += [crops, whole] + [torch.from_numpy(canny_edge_planes(hh, ww, seed=hh)).to(cuda)
+                                for hh, ww in ((37, 45), (64, 128))]
+    reset_launches()
+    for x in planes:
+        got = canny_planes(x, low, high)
+        assert got[0].device.type == "cuda"
+        _assert_equal(got, canny_planes_plain(x, low, high))
+        assert not (got[0] & ~got[1]).any()
+    assert LAUNCHES["canny_head"] == len(planes)
+    reset_launches()
+    edges = canny_u8(crops, low, high)
+    torch.cuda.synchronize()
+    assert LAUNCHES["canny_head"] == 1 and LAUNCHES["propagate"] == 1
+    _assert_equal(edges[:3], canny_u8(crops[:3].cpu().contiguous(), low, high).to(cuda))
 
 
 def _planes(rng, shape, p, cuda):

@@ -1,7 +1,7 @@
 """The kernel rig ``tpu_inspect_torch.tools.kernel_bench`` on the CPU, at
-its small size: every form of kernels B, D, E, F, G, H, I, J, M and N (and
-the launch floor) builds its planes through the port's engine, equals its
-plain version exactly and gets a time (a host wall here, labelled so;
+its small size: every form of kernels B, C, D, E, F, G, H, I, J, M, N and O
+(and the launch floor) builds its planes through the port's engine, equals
+its plain version exactly and gets a time (a host wall here, labelled so;
 device times come from the card)."""
 
 import json
@@ -14,6 +14,13 @@ from tpu_inspect_torch.tools import kernel_bench
 def test_kernel_bench_small_cpu(capsys):
     rows = kernel_bench.main(["--device", "cpu", "--small", "--n", "1", "--reps", "1"])
     assert [r["form"] for r in rows] == list(kernel_bench.FORMS)
+    # C's two forms (the threshold and the Canny method's defect tail) and
+    # O's (the Canny head on the units and on the whole plane)
+    assert {"C 48u threshold form", "C 48u canny form", "O canny head 48u",
+            "O canny head whole"} <= {r["form"] for r in rows}
+    kernel = {r["form"]: r["kernel"] for r in rows}
+    assert kernel["C 48u canny form"] == "blob_filter"
+    assert kernel["O canny head whole"] == "canny_head"
     for r in rows:
         assert r["max_abs_err"] == 0 and r["where"] == "cpu (host wall)"
         assert r["ms"] > 0 and r["plain_ms"] > 0 and r["bound_ms"] > 0

@@ -2,9 +2,10 @@
 NVIDIA H100.
 
 The JAX/Pallas package :mod:`tpu_inspect` stays the reference; this package
-reproduces it bit-exactly with torch ops plus fifteen CUDA C++ kernels
+reproduces it bit-exactly with torch ops plus sixteen CUDA C++ kernels
 written for Hopper (``csrc/``, kernels A-L and the head kernels: Otsu, M
-the u8 Gaussian blur, N the adaptive mean): the inspection paths
+the u8 Gaussian blur, N the adaptive mean, O Canny's gradient and
+non-maximum suppression): the inspection paths
 (:func:`tpu_inspect_torch.engine.inspect_image` with the otsu/adaptive
 segmentation and threshold/canny defect methods, the chained seg+ROI tail,
 the whole-image route, ``defect_intermediates``), the session and UI

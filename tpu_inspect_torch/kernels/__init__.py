@@ -14,6 +14,7 @@ LAUNCHES: dict[str, int] = {
     "seg_tail": 0, "median_residual": 0, "blob_filter": 0, "propagate": 0, "label": 0,
     "cc_stats": 0, "blob_select": 0, "median_blur": 0, "morph": 0, "label_stats": 0,
     "seg_roi_tail": 0, "median_probe": 0, "otsu": 0, "gauss_blur": 0, "adaptive": 0,
+    "canny_head": 0,
 }
 
 

@@ -86,6 +86,8 @@ _SIGNATURES = {
     "tik_gauss_blur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, taps, out, U, H, W, k, C, mode (0 mean, 1 BINARY_INV), stream
     "tik_adaptive_mean": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, strong, cand, U, H, W, low, high, stream
+    "tik_canny_head": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

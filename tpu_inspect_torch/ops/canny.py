@@ -14,13 +14,17 @@ OpenCV's scalar pipeline, exactly:
   candidate (m > high) become edges — kernel D (``ops.flood.propagate``)
   on CUDA tensors.
 
-Sobel and NMS are torch int32 ops (XLA in the reference).
+Sobel, the magnitude, NMS and the two thresholds (XLA ops in the
+reference) are kernel O (``csrc/canny_head.cu``) for a CUDA tensor, one
+launch a call (:func:`canny_planes`), and their plain version,
+:func:`canny_planes_plain`, int32 torch ops, for a CPU one.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes
 from tpu_inspect_torch.ops.flood import propagate
 
 _TG22 = 13573  # tan(22.5 deg) * 2^15, OpenCV's CANNY_SHIFT fixed point
@@ -51,9 +55,9 @@ def _sobel3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return gx, gy
 
 
-def canny_planes(x: torch.Tensor, low: int, high: int):
-    """The hysteresis inputs of :func:`canny_u8`: (strong, cand), [U, H, W]
-    bool each — NMS survivors above ``high`` and above ``low``."""
+def canny_planes_plain(x: torch.Tensor, low: int, high: int):
+    """The plain PyTorch version of :func:`canny_planes` (on any device; it
+    launches no kernel), and kernel O's contract."""
     low, high = int(min(low, high)), int(max(low, high))
     gx, gy = _sobel3(x)
     mag = gx.abs() + gy.abs()
@@ -85,10 +89,40 @@ def canny_planes(x: torch.Tensor, low: int, high: int):
     return strong, cand
 
 
+# every magnitude lies in [0, 4 * 255 * 2]: a threshold outside [-1, 2040]
+# compares as its clamp does, which int32 holds
+_MAG_MAX = 2040
+
+
+def canny_planes(x: torch.Tensor, low: int, high: int):
+    """The hysteresis inputs of :func:`canny_u8`: (strong, cand), [U, H, W]
+    bool each — NMS survivors above ``high`` and above ``low`` (their order
+    does not matter). ``x`` is a contiguous [U, H, W] uint8 tensor: kernel
+    O runs for a CUDA one (one launch), :func:`canny_planes_plain` for a
+    CPU one."""
+    check_planes(x, "canny_planes")
+    if x.device.type == "cpu":
+        return canny_planes_plain(x, low, high)
+    low, high = (max(-1, min(int(v), _MAG_MAX)) for v in sorted((int(low), int(high))))
+    strong = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    cand = torch.empty_like(strong)
+    if x.numel() == 0:
+        return strong, cand
+    u, h, w = x.shape
+    code = build.lib().tik_canny_head(
+        x.data_ptr(), strong.data_ptr(), cand.data_ptr(), u, h, w, low, high,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("canny_planes", code)
+    LAUNCHES["canny_head"] += 1
+    return strong, cand
+
+
 def canny_u8(x: torch.Tensor, low: int, high: int, *, err=None) -> torch.Tensor:
     """x [U, H, W] uint8 -> edges uint8 0/255; low/high as cv2.Canny (their
-    order does not matter). On CUDA tensors it launches kernel D once
-    (``err`` as for :func:`tpu_inspect_torch.ops.flood.propagate`)."""
+    order does not matter). On CUDA tensors it launches kernel O, then
+    kernel D (``err`` as for :func:`tpu_inspect_torch.ops.flood.propagate`),
+    once each."""
     strong, cand = canny_planes(x, low, high)
     edges = propagate(strong, cand, conn8=True, err=err)
     return torch.where(edges, 255, 0).to(torch.uint8)

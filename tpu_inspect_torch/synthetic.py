@@ -135,6 +135,28 @@ def serpentine_plane(h: int, w: int) -> np.ndarray:
     return dom
 
 
+def canny_edge_planes(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """A [12, H, W] uint8 batch that puts Canny's sector test and its
+    neighbour comparisons on their edges (port-only fixture for kernel O):
+    a 0/255 checkerboard (the largest magnitudes), a constant plane,
+    equal-magnitude ridges and steps across each sector (vertical,
+    horizontal and both diagonals: ties between equal neighbours, ``gx`` or
+    ``gy`` zero), seeded noise and a noisy diagonal step."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    masks = [
+        (xx + yy) % 2 == 0,
+        np.zeros((h, w), bool),
+        xx % 4 == 0, yy % 4 == 0, (xx + yy) % 5 == 0, (xx - yy) % 5 == 0,
+        xx < w // 2, yy < h // 2, xx + yy < (h + w) // 2, xx - yy < (w - h) // 2,
+    ]
+    planes = [np.where(m, 200, 20) for m in masks]
+    planes[0], planes[1] = np.where(masks[0], 255, 0), np.full((h, w), 77)
+    rng = np.random.RandomState(seed)
+    noisy_step = np.clip(planes[8] + rng.randint(-3, 4, (h, w)), 0, 255)
+    planes += [rng.randint(0, 256, (h, w)), noisy_step]
+    return np.stack(planes).astype(np.uint8)
+
+
 def standard_workload() -> dict:
     """The standard workload: the sample grid (48 units of 316x315 on a
     4096x3000 image, seed 0, defect rate 0.3) with one circle exclusion —

@@ -22,7 +22,9 @@ else ``ROTATION[i % 6]``):
 - ``units``: ``engine.inspect_units`` on 1-140 units whose H and W lie on
   word and layout edges (1, 2, 31-33, 63-65, 255, 315, 316), 1-4
   squares of 380-420 px (kernels A's, C's and K's global scratch), or
-  thin units of 1-16 rows and 1000-8000 columns; noise,
+  thin units of 1-16 rows and 1000 columns up to the int32 gate of kernels
+  A and C (:func:`int32_gate_width`: 11,000-32,700 columns, where A's and
+  C's layouts and kernel O's grid are widest); noise,
   two-level blobs, mold surfaces and a 1-px serpentine, an empty and a
   full unit in the same batch;
 - ``image``: ``engine.inspect_image`` on a random grid over a
@@ -98,7 +100,7 @@ WHOLE_BIG_EVERY, WHOLE_BIG_AT = 25, 9
 # the kernels a user path launches (kernel L serves the median-probe tool)
 USER_KERNELS = ("seg_tail", "median_residual", "blob_filter", "propagate", "label", "cc_stats",
                 "blob_select", "median_blur", "morph", "label_stats", "seg_roi_tail", "otsu",
-                "gauss_blur", "adaptive")
+                "gauss_blur", "adaptive", "canny_head")
 # trials from which every user-path kernel must have launched on the card
 COVER_TRIALS = 20
 # chip_smoke.py's fuzz phase: a fixed seed and trial count
@@ -232,7 +234,8 @@ def draw_trial(rng, seed: int, i: int, small: bool = False) -> Trial:
     three of a units, image, chained or diag trial has units above kernels
     A's, C's and K's shared memory (the global scratch); in another one in
     three, half the units and preview trials take thin units (1-16 rows,
-    1000-8000 columns; one 2^20 px unit for kernel J's global scratch), and
+    1000 columns up to the int32 gate; one 2^20 px unit for kernel J's
+    global scratch), and
     every whole trial a thin unit just past kernel A's or C's int32 sums,
     which takes the whole-image route at the real ``WHOLE_MIN_PX``."""
     cls = trial_class(i)
@@ -248,7 +251,8 @@ def draw_trial(rng, seed: int, i: int, small: bool = False) -> Trial:
         cap = SCRATCH_MAX_UNITS if h * w > 316 * 315 else 140
         u = 1 if cls == "diag" else min(_batch_units(rng, h, w), cap, 6 if small else 140)
         if thin and cls == "units" and rng.rand() < 0.5:
-            h, w = int(rng.choice([1, 2, 3, 8, 16])), int(rng.randint(1000, 8001))
+            h = int(rng.choice([1, 2, 3, 8, 16]))
+            w = int(rng.randint(1000, int32_gate_width(h)))
             u = _batch_units(rng, h, w)
         elif thin and cls == "preview" and rng.rand() < 0.5:
             h = int(rng.choice([1, 2, 4, 8]))
@@ -437,10 +441,10 @@ def gate_sides(t: Trial) -> set[str]:
 
 
 def _cand(dp: DefectParams) -> Counter:
-    """``engine._candidates``: Canny's hysteresis (D), kernel H's full
-    median where k*k >= 2048, else kernel B."""
+    """``engine._candidates``: Canny's head (O) and hysteresis (D), kernel
+    H's full median where k*k >= 2048, else kernel B."""
     if dp.method == "canny":
-        return Counter(propagate=1)
+        return Counter(canny_head=1, propagate=1)
     k = engine._median_k(dp)
     return Counter(median_blur=1) if k * k >= 2048 else Counter(median_residual=1)
 
@@ -464,15 +468,15 @@ def route_launches(route: str, seg: SegmentationParams, dp: DefectParams,
 
     - ``split seg``: the head (:func:`head_launches`: M, then Otsu or N);
       A (seg tail);
-    - ``split defect``: A (ROI tail), B | H | D (candidates), C;
+    - ``split defect``: A (ROI tail), B | H | O and D (candidates), C;
     - ``chained`` (otsu only): the head, K (seg tail + zone + ROI tail),
-      B | H | D, C;
+      B | H | O and D, C;
     - ``whole seg``: the head; I (head + close/open), D (border flood), E,
       F;
-    - ``whole defect``: I (ROI erode), E, F; B | H | D; I (ROI AND + open),
-      D (exterior), E (fill labels), D (top-level blobs), G;
-    - ``diag``: A (ROI tail); unless the ROI is empty, B | H | D, I (ROI
-      AND + open), D (exterior) and E twice (``analyze_blobs``);
+    - ``whole defect``: I (ROI erode), E, F; B | H | O and D; I (ROI AND +
+      open), D (exterior), E (fill labels), D (top-level blobs), G;
+    - ``diag``: A (ROI tail); unless the ROI is empty, B | H | O and D, I
+      (ROI AND + open), D (exterior) and E twice (``analyze_blobs``);
     - ``outline``: I (erode), J, and I again (the 1-px inner erode) where
       the preview is not empty (``found``);
     - ``largest``: I (erode), J.
@@ -504,7 +508,7 @@ def route_launches(route: str, seg: SegmentationParams, dp: DefectParams,
 SHARDED_KERNELS = {
     "segment": ("morph", "propagate"),
     "defect threshold": ("label", "cc_stats", "propagate", "blob_select", "morph"),
-    "defect canny": ("label", "cc_stats", "propagate", "blob_select", "morph"),
+    "defect canny": ("label", "cc_stats", "propagate", "blob_select", "morph", "canny_head"),
 }
 
 

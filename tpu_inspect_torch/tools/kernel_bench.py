@@ -1,6 +1,6 @@
-"""Time one form of kernel B, D, E, F, G, H, I, J, M or N at a time, checked
-exact against its plain version: the rig to iterate on a kernel without a
-whole chip_smoke run.
+"""Time one form of kernel B, C, D, E, F, G, H, I, J, M, N or O at a time,
+checked exact against its plain version: the rig to iterate on a kernel
+without a whole chip_smoke run.
 
 The port of ``tools/kernel_bench.py`` (which times the JAX package's Pallas
 kernels one by one). Its planes are ``chip_smoke.py``'s: the standard
@@ -28,8 +28,9 @@ To time an older tree's kernels on the same forms, run this file from the
 older tree's root with ``PYTHONPATH=.``: kernel I's forms then drive that
 tree's byte-plane chain (one launch a stage) with the head and the ``> 0``
 as torch ops, as its callers ran them, J's wrapper without a flag
-argument reads its own flag each call, and M's and N's forms time a tree
-without them on its torch-op blur and adaptive threshold.
+argument reads its own flag each call, and M's, N's and O's forms time a
+tree without them on its torch-op blur, adaptive threshold and Canny
+planes.
 
 The ``launch floor`` form is a one-thread kernel storing one byte: the
 time no one-unit launch (kernel J's preview unit) can beat.
@@ -57,6 +58,13 @@ def _roi_rows_bytes(x, k: int, lo, hi) -> int:
     lo, hi = lo.cpu().long(), hi.cpu().long()
     rows = ((hi + r).clamp(max=h) - (lo - r).clamp(min=0)).clamp(min=0)
     return int(torch.where(hi > lo, rows, 0).sum()) * w
+
+
+def _max_x2(roi_st, dp) -> torch.Tensor:
+    """Kernels C's and G's [U] int32 area cap: twice the ROI's
+    ``max(min_area, floor(area * max_area_frac))`` (engine._defect_tail)."""
+    return (2 * torch.clamp(torch.floor(roi_st[:, 0].to(torch.float64) * dp.max_area_frac),
+                            min=dp.min_area).to(torch.int32)).contiguous()
 
 
 def planes(dev: torch.device, small: bool = False) -> dict:
@@ -97,6 +105,12 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     roi, roi_st = engine._defect_roi(seg_masks, dp.erode_px)
     lo, hi = max(1, dp.threshold // 2), max(2, dp.threshold)
     strong, cand_c = canny_planes(crops, lo, hi)
+    # kernel C's inputs, as engine._defect_tail gives them: the threshold
+    # form's median residual over the ROI rows, the Canny form's edges, the
+    # ROI and its max area
+    cand_t = engine._candidates(crops, dp, roi_st)
+    edges = canny_u8(crops, lo, hi)
+    max_x2 = _max_x2(roi_st, dp)
     u0 = int(torch.nonzero(roi_st[:, 3] > 0)[0, 0])
     fg1 = (cand_c & (roi > 0))[u0 : u0 + 1].contiguous()
     fill1 = exterior_background(fg1).logical_not().contiguous()
@@ -117,8 +131,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     fill_w, top_w, ext_w = fill_regions(m_w)
     # kernel G's inputs: the defect tail's fill regions, threshold and Canny
     # forms, and the ROI's max area (engine._defect)
-    max_x2_w = (2 * torch.clamp(torch.floor(roi_st_w[:, 0].to(torch.float64) * dp.max_area_frac),
-                                min=dp.min_area).to(torch.int32)).contiguous()
+    max_x2_w = _max_x2(roi_st_w, dp)
     m_cw = candidate_mask(canny_u8(whole, lo, hi), roi_w, False)
     fill_cw, top_cw, ext_cw = fill_regions(m_cw)
     # kernel J's: the erosion preview's unit (its seg mask eroded) and the
@@ -154,6 +167,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
         **{f"roi_rows{k}_w": _roi_rows_bytes(whole, k, rows["lo_w"], rows["hi_w"])
            for k in (21, 45)},
         "strong": strong, "cand": cand_c, "free": (seg_masks == 0).contiguous(),
+        "cand_t": cand_t, "edges": edges, "roi": roi, "max_x2": max_x2,
         "fg1": fg1, "fill1": fill1, "free1": fg1.logical_not().contiguous(),
         "free_w": seg_pre_w.logical_not().contiguous(), "seg_fill_w": seg_fill_w.contiguous(),
         "roi_pre_w": roi_pre_w,
@@ -168,6 +182,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
 
 THR = 24  # DefectParams().threshold
 MIN_X2 = 40  # 2 * DefectParams().min_area
+LOW, HIGH = max(1, THR // 2), max(2, THR)  # the Canny method's thresholds
 
 
 def _stages(name: str):
@@ -179,11 +194,12 @@ def _stages(name: str):
 
 # form -> (kernel, input names, call on (kernel function, planes, strip));
 # B's forms (the default k = 21 over the ROI rows, and k = 45, the largest
-# k it takes; one unit as the interactive calls take it), then D's four
+# k it takes; one unit as the interactive calls take it), C's two (the
+# threshold and the Canny method's defect tail on the 48 units), then D's four
 # paths (the 48 units' Canny hysteresis and the whole-image route's three),
 # E's, H's (median_k = 47, the engine's smallest k on H, and 101; one
-# unit; 47 on the whole plane), I's, F's, G's, J's, M's and N's, and the
-# launch floor
+# unit; 47 on the whole plane), I's, F's, G's, J's, M's, N's and O's, and
+# the launch floor
 FORMS = {
     "B 48u k21 roi rows": ("median_residual", ("roi_rows21", "lo", "hi"),
                            lambda f, p, s: f(p["crops"], 21, THR, p["lo"], p["hi"], strip=s)),
@@ -197,6 +213,12 @@ FORMS = {
     "B whole k45 roi rows": ("median_residual", ("roi_rows45_w", "lo_w", "hi_w"),
                              lambda f, p, s: f(p["whole"], 45, THR, p["lo_w"], p["hi_w"],
                                                strip=s)),
+    "C 48u threshold form": ("blob_filter", ("cand_t", "max_x2", "roi"),
+                             lambda f, p, s: f(p["cand_t"], p["max_x2"], min_x2=MIN_X2,
+                                               roi=p["roi"], pre_open=True)),
+    "C 48u canny form": ("blob_filter", ("edges", "max_x2", "roi"),
+                         lambda f, p, s: f(p["edges"], p["max_x2"], min_x2=MIN_X2, roi=p["roi"],
+                                           pre_open=False)),
     "D canny 48u": ("propagate", ("strong", "cand"),
                     lambda f, p, s: f(p["strong"], p["cand"], True)),
     "D border seg masks 48u": ("propagate", ("free",),
@@ -259,6 +281,10 @@ FORMS = {
     "M whole k3": ("gauss_blur", ("whole",), lambda f, p, s: f(p["whole"], 3)),
     "N 48u block51": ("adaptive", ("x",), lambda f, p, s: f(p["x"], 51, 10)),
     "N 48u block201": ("adaptive", ("x",), lambda f, p, s: f(p["x"], 201, 10)),
+    # O: the Canny method's head at its default thresholds on the 48 units
+    # and on the whole plane
+    "O canny head 48u": ("canny_head", ("crops",), lambda f, p, s: f(p["crops"], LOW, HIGH)),
+    "O canny head whole": ("canny_head", ("whole",), lambda f, p, s: f(p["whole"], LOW, HIGH)),
     "launch floor": ("launch_floor", (), lambda f, p, s: f(p["whole"].device)),
 }
 # the kernels whose forms take a strip length
@@ -278,7 +304,8 @@ def kernels() -> dict:
         median_residual_mask_plain,
     )
 
-    from tpu_inspect_torch.ops import gaussian, morphology, threshold
+    from tpu_inspect_torch.ops import canny, gaussian, morphology, threshold
+    from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain
     from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
     from tpu_inspect_torch.ops.cc import (
         component_stats,
@@ -294,14 +321,16 @@ def kernels() -> dict:
     chain_plain = getattr(morphology, "morph_chain_plain", None)
     if chain_plain is None:  # an older tree: byte planes in and out
         chain, chain_plain = _byte_chain(chain), _byte_chain(morphology.apply_stages)
-    # a tree without M and N: its torch-op versions are the timed ones
+    # a tree without M, N or O: its torch-op versions are the timed ones
     blur_plain = getattr(gaussian, "gaussian_blur_u8_plain", gaussian.gaussian_blur_u8)
     adaptive_plain = getattr(threshold, "adaptive_threshold_inv_plain",
                              threshold.adaptive_threshold_inv)
+    canny_plain = getattr(canny, "canny_planes_plain", canny.canny_planes)
     return {"propagate": (propagate, propagate_plain, True),
             "label": (label_components, label_components_plain, True),
             "median_residual": (_median_residual, stripless(median_residual_mask_plain), False),
             "median_blur": (_median_blur, stripless(median_blur_u8_plain), False),
+            "blob_filter": (blob_filter, blob_filter_plain, True),
             "morph": (chain, chain_plain, False),
             "cc_stats": (component_stats, component_stats_plain, True),
             "blob_select": (blob_select, blob_select_plain, True),
@@ -310,6 +339,7 @@ def kernels() -> dict:
                             "err" in inspect.signature(largest_component_sums).parameters),
             "gauss_blur": (gaussian.gaussian_blur_u8, blur_plain, False),
             "adaptive": (threshold.adaptive_threshold_inv, adaptive_plain, False),
+            "canny_head": (canny.canny_planes, canny_plain, False),
             "launch_floor": (_launch_floor, _launch_floor_plain, False)}
 
 
