@@ -126,25 +126,47 @@ def _workload_crops3() -> torch.Tensor:
     return _workload_planes()[0][:3].contiguous()
 
 
-def _head_planes(cuda, seed):
-    """Planes of the card's own generator at the edge shapes, a flat and a
-    saturated unit, and the standard workload's first 3 crops, raw and
-    blurred at 3 (the adaptive path's input)."""
+# kernels M's and N's vector paths at their edges: widths around 4-byte
+# words, a warp's 32 and 128 columns, and the workload's 316, at H = 1, 2
+# and 40; and 130, where at block 3 the last word that N stages for its
+# second strip of 64 columns reaches past the plane's last column
+_HEAD_WIDTHS = tuple((1, hh, ww) for hh in (1, 2, 40)
+                     for ww in (1, 2, 3, 4, 5, 15, 16, 17, 31, 32, 33, 127, 128, 129, 130, 316))
+
+
+def _head_planes(cuda, seed, family="edges", blurred=False):
+    """Planes of the card's own generator: ``edges``, the edge shapes with a
+    flat and a saturated unit, a view ``x[1:]`` of a [3, 7, 5] plane (its
+    base not 4-byte aligned), and the standard workload's first 3 crops,
+    raw and blurred at 3 (the adaptive path's input); ``widths``, the
+    widths of ``_HEAD_WIDTHS``; ``workload``, the standard workload's 48
+    crops and its whole plane (blurred at 3 where ``blurred``: kernel N's
+    input on the adaptive path)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
+    if family == "widths":
+        return [torch.randint(0, 256, s, generator=gen, device=cuda, dtype=torch.uint8)
+                for s in _HEAD_WIDTHS]
+    if family == "workload":
+        planes = [p.to(cuda) for p in _workload_planes()]
+        return [gaussian_blur_u8_plain(p, 3).contiguous() for p in planes] if blurred else planes
     planes = [torch.randint(0, 256, s, generator=gen, device=cuda, dtype=torch.uint8)
-              for s in _HEAD_SHAPES]
+              for s in _HEAD_SHAPES + ((3, 7, 5),)]
     planes[2][1] = 77
     planes[4][1] = 255
+    planes[-1] = planes[-1][1:]
+    assert planes[-1].is_contiguous() and planes[-1].data_ptr() % 4
     crops = _workload_crops3().to(cuda)
     return planes + [crops, gaussian_blur_u8_plain(crops, 3).contiguous()]
 
 
+@pytest.mark.parametrize("family", ["edges", "widths", "workload"])
 @pytest.mark.parametrize("k,sigma", [(3, 0.0), (5, 0.0), (7, 0.0), (9, 0.0), (9, 1.7), (25, 0.0),
                                      (31, 0.0)])
-def test_gauss_blur_kernel_matches_plain(cuda, k, sigma):
+def test_gauss_blur_kernel_matches_plain(cuda, k, sigma, family):
     """Kernel M (the bit-exact u8 blur) against its plain version on the
-    card at every edge shape: one launch a call, exact."""
-    planes = _head_planes(cuda, k)
+    card at every edge shape, every width of ``_HEAD_WIDTHS``, an unaligned
+    view and the workload's planes: one launch a call, exact."""
+    planes = _head_planes(cuda, k, family)
     reset_launches()
     for x in planes:
         got = gaussian_blur_u8(x, k, sigma)
@@ -153,12 +175,14 @@ def test_gauss_blur_kernel_matches_plain(cuda, k, sigma):
     assert LAUNCHES["gauss_blur"] == len(planes)
 
 
+@pytest.mark.parametrize("family", ["edges", "widths", "workload"])
 @pytest.mark.parametrize("block", [3, 9, 51, 119, 201])
-def test_adaptive_kernel_matches_plain(cuda, block):
+def test_adaptive_kernel_matches_plain(cuda, block, family):
     """Kernel N in both modes (the mean; the BINARY_INV compare fused at C
-    -1 and 10) against the plain versions on the card at every edge shape:
-    one launch a call, exact."""
-    planes = _head_planes(cuda, block)
+    -1 and 10) against the plain versions on the card at every edge shape,
+    every width of ``_HEAD_WIDTHS``, an unaligned view and the workload's
+    planes: one launch a call, exact."""
+    planes = _head_planes(cuda, block, family, blurred=True)
     reset_launches()
     for x in planes:
         _assert_equal(adaptive_gaussian_mean(x, block), adaptive_gaussian_mean_plain(x, block))
@@ -169,12 +193,14 @@ def test_adaptive_kernel_matches_plain(cuda, block):
 
 
 def test_head_kernels_refuse_what_they_do_not_take(cuda):
-    """Kernels M, N and O take contiguous [U, H, W] uint8 planes and N an
-    odd block: anything else raises, with no fallback to the plain
-    version."""
+    """Kernels M, N and O take contiguous [U, H, W] uint8 planes, M an odd
+    k of 3-31 and N an odd block: anything else raises, with no fallback to
+    the plain version."""
     x = torch.zeros((2, 8, 9), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         gaussian_blur_u8(x.transpose(1, 2), 3)
+    with pytest.raises(ValueError, match="odd k of 3-31"):
+        gaussian_blur_u8(x, 4)
     with pytest.raises(ValueError, match="uint8"):
         adaptive_gaussian_mean(x.to(torch.int32), 3)
     with pytest.raises(ValueError, match="odd"):

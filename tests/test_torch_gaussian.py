@@ -8,9 +8,13 @@ tables and border index tables the kernels read equal the ones the plain
 versions compute with (JAX's copies of the kernels included), and the
 plain versions themselves are held against the JAX package (blur) and
 ``cv2.adaptiveThreshold`` (mean) in ``test_torch_ops.py`` and
-``test_torch_canny.py``.
+``test_torch_canny.py``, and here at the widths where the kernels' vector
+paths end.
 """
 
+import cv2
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -51,6 +55,57 @@ def test_public_wrappers_on_cpu_equal_plain(kind, k, arg):
         got, ref = fast(x), plain(x)
         assert got.device == CPU and got.dtype == ref.dtype == torch.uint8
         assert torch.equal(got, ref)
+    assert not any(LAUNCHES.values())
+
+
+# the widths where kernels M's and N's vector paths begin and end (4-byte
+# words, a warp's 32 and 128 columns, the workload's 316) at H = 1 and 2,
+# and a view x[1:] of a [3, 7, 5] plane (on the card its base is not 4-byte
+# aligned)
+_WIDTHS = (1, 2, 3, 4, 5, 15, 16, 17, 31, 32, 33, 127, 128, 129, 316)
+
+
+def _width_planes():
+    rng = np.random.RandomState(17)
+    planes = [torch.from_numpy(rng.randint(0, 256, (1, h, w)).astype(np.uint8))
+              for h in (1, 2) for w in _WIDTHS]
+    return planes + [torch.from_numpy(rng.randint(0, 256, (3, 7, 5)).astype(np.uint8))[1:]]
+
+
+def _cv2_mean(x: np.ndarray, block: int) -> np.ndarray:
+    """cv2.adaptiveThreshold's uint8 local mean of one plane, read back from
+    its output at every C: a pixel is 255 exactly while C <= mean - x."""
+    best = np.full(x.shape, -256, np.int64)
+    for c in range(-255, 256):
+        out = cv2.adaptiveThreshold(x, 255, cv2.ADAPTIVE_THRESH_GAUSSIAN_C,
+                                    cv2.THRESH_BINARY_INV, block, c)
+        best = np.where(out > 0, c, best)
+    return (best + x).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind,k", [("blur", 3), ("mean", 3), ("mean", 51)])
+def test_plain_versions_at_the_kernels_edge_widths(kind, k):
+    """At those widths the public names on the CPU equal the plain versions
+    (kernels M's and N's contracts), and these equal the JAX package's blur
+    (one jitted call over all the planes) and OpenCV's adaptive mean."""
+    planes = _width_planes()
+    assert planes[-1].is_contiguous() and planes[-1].storage_offset() == 35
+    reset_launches()
+    if kind == "blur":
+        got = [gaussian.gaussian_blur_u8(x, k) for x in planes]
+        ref = jax.jit(lambda xs: [jgauss.gaussian_blur_u8(x, k) for x in xs])(
+            [jnp.asarray(x.numpy()) for x in planes])
+        for x, g, r in zip(planes, got, ref):
+            assert torch.equal(g, gaussian.gaussian_blur_u8_plain(x, k))
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    else:
+        for x in planes:
+            got = gaussian.adaptive_gaussian_mean(x, k)
+            assert torch.equal(got, gaussian.adaptive_gaussian_mean_plain(x, k))
+            assert torch.equal(threshold.adaptive_threshold_inv(x, k, 10),
+                               threshold.adaptive_threshold_inv_plain(x, k, 10))
+            for g, u in zip(got, x):
+                np.testing.assert_array_equal(g.numpy(), _cv2_mean(u.numpy(), k))
     assert not any(LAUNCHES.values())
 
 

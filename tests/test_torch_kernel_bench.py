@@ -18,8 +18,13 @@ def test_kernel_bench_small_cpu(capsys):
     # O's (the Canny head on the units and on the whole plane)
     assert {"C 48u threshold form", "C 48u canny form", "O canny head 48u",
             "O canny head whole"} <= {r["form"] for r in rows}
+    # M's and N's forms: each time of their rows in PERF.md has one
+    assert [f for f in kernel_bench.FORMS if f[:2] in ("M ", "N ")] == [
+        "M 48u k3", "M whole k3", "M 48u k31", "N 48u block51", "N 48u block201",
+        "N whole block51"]
     kernel = {r["form"]: r["kernel"] for r in rows}
     assert kernel["C 48u canny form"] == "blob_filter"
+    assert kernel["M 48u k31"] == "gauss_blur" and kernel["N whole block51"] == "adaptive"
     assert kernel["O canny head whole"] == "canny_head"
     for r in rows:
         assert r["max_abs_err"] == 0 and r["where"] == "cpu (host wall)"

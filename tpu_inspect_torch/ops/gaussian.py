@@ -98,7 +98,8 @@ def gaussian_blur_u8_plain(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch
 
 def gaussian_blur_u8(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch.Tensor:
     """cv2.GaussianBlur(CV_8U, (k, k), sigma) bit-exact: kernel M for a
-    contiguous [U, H, W] uint8 CUDA tensor (one launch),
+    contiguous [U, H, W] uint8 CUDA tensor (one launch; k odd, 3-31, the
+    range ``SegmentationParams.gaussian_blur`` gives after ``as_odd``),
     :func:`gaussian_blur_u8_plain` for a CPU one ([..., H, W]). ``k <= 1``
     returns ``x``."""
     k = int(k)
@@ -107,6 +108,8 @@ def gaussian_blur_u8(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch.Tenso
     if x.device.type == "cpu":
         return gaussian_blur_u8_plain(x, k, sigma)
     check_planes(x, "gaussian_blur_u8")
+    if k % 2 == 0 or k > 31:
+        raise ValueError(f"gaussian_blur_u8: kernel M takes an odd k of 3-31, got {k}")
     u, h, w = x.shape
     out = torch.empty_like(x)
     code = build.lib().tik_gauss_blur(
@@ -209,11 +212,11 @@ def _adaptive_launch(x: torch.Tensor, block_size: int, C: int, compare: bool,
                      name: str) -> torch.Tensor:
     """One launch of kernel N on a contiguous [U, H, W] uint8 CUDA tensor:
     the mean (``compare`` False) or the BINARY_INV compare against ``C``
-    fused behind it. ``block_size`` odd, at least 1."""
+    fused behind it. ``block_size`` odd, 1-215."""
     check_planes(x, name)
     k = int(block_size)
-    if k < 1 or k % 2 == 0:
-        raise ValueError(f"{name}: block_size must be odd and positive, got {k}")
+    if k < 1 or k % 2 == 0 or k > 215:
+        raise ValueError(f"{name}: block_size must be odd, 1-215, got {k}")
     u, h, w = x.shape
     out = torch.empty_like(x)
     code = build.lib().tik_adaptive_mean(

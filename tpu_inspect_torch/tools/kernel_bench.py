@@ -275,12 +275,15 @@ FORMS = {
     "J preview unit": ("label_stats", ("j_one",), lambda f, p, s: f(p["j_one"])),
     "J 48u eroded, empty + full": ("label_stats", ("j_plane",), lambda f, p, s: f(p["j_plane"])),
     # M: the blur at the path's k = 3 on the 48 units and on the whole
-    # plane; N: the adaptive path's compare (C 10) on the 48 blurred units
-    # at the default block 51 and at 201, the largest
+    # plane, and at k = 31, the largest, on the 48 units; N: the adaptive
+    # path's compare (C 10) on the 48 blurred units at the default block 51
+    # and at 201, the largest, and on the blurred whole plane at block 51
     "M 48u k3": ("gauss_blur", ("crops",), lambda f, p, s: f(p["crops"], 3)),
     "M whole k3": ("gauss_blur", ("whole",), lambda f, p, s: f(p["whole"], 3)),
+    "M 48u k31": ("gauss_blur", ("crops",), lambda f, p, s: f(p["crops"], 31)),
     "N 48u block51": ("adaptive", ("x",), lambda f, p, s: f(p["x"], 51, 10)),
     "N 48u block201": ("adaptive", ("x",), lambda f, p, s: f(p["x"], 201, 10)),
+    "N whole block51": ("adaptive", ("x_w",), lambda f, p, s: f(p["x_w"], 51, 10)),
     # O: the Canny method's head at its default thresholds on the 48 units
     # and on the whole plane
     "O canny head 48u": ("canny_head", ("crops",), lambda f, p, s: f(p["crops"], LOW, HIGH)),
