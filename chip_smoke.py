@@ -53,8 +53,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    large for their shared-memory layout (the global-scratch variant);
    seeded random planes of odd sizes with an empty and a full unit, and a
    long 1-px serpentine; then the ``cuda``-marked tests of kernels M, N
-   and O (their edge shapes; the adaptive mean on the card against the CPU)
-   and of the Otsu kernel,
+   and O (their edge shapes; O also at widths 1-5, 31-33, 63-65, 127-129
+   and 316 by H 1, 2, 3 and 40, on views with no row 4-byte aligned, at
+   thresholds (-1, 0), (0, 2040) and (2040, 2040); the adaptive mean on
+   the card against the CPU) and of the Otsu kernel (one and two grey
+   levels, 1x1x1, 140 units of 143 px, 17-px units, a base 5 bytes past a
+   16-byte boundary, 999x1001 units),
    of the redesigned A, K and C, of the redesigned D and E, of the
    redesigned B and H and of the redesigned I and F
    (``tests/test_torch_otsu.py``,
@@ -62,7 +66,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``tests/test_torch_median_hist.py``: word-edge widths, tile seams and
    corners, staircases, spirals, serpentines, solid planes, real Canny
    edges, the sliding-histogram walk's strips and edges) in one pytest
-   subprocess;
+   subprocess, which runs beside phase 4 and is read before phase 4b;
 4. every path on the card, each driven with the launch counts set to 0 just
    before it and read just after, and held field by field against the same
    engine on ``device="cpu"``: ``engine.inspect_image`` for the four
@@ -157,6 +161,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import importlib.util
@@ -1362,27 +1367,25 @@ def main() -> int:
     # capture whose sums pass 2^31), the adaptive mean's float64 ops on the
     # card against the CPU (fault C7's unit, blocks 9-201), and the sync
     # checks, kernels M, N and O at their edge shapes (O also on the 48
-    # crops and the whole plane), each against its plain version; the
-    # files' other tests repeat
-    # this script's own checks
-    mark("phase 3: the cuda-marked tests start")
+    # crops and the whole plane, and at every width around its words and
+    # tiles), the Otsu kernel's edge units, each against its plain version;
+    # the files' other tests repeat this script's own checks. They run in a
+    # process of their own beside phase 4 (both spend most of their time in
+    # CPU runs to compare with), read before phase 4b and ended if this
+    # process exits first.
+    mark("phase 3: the cuda-marked tests start, beside phase 4")
     tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
              "tests/test_torch_median_hist.py", "tests/test_torch_cluster.py"]
     selected = ("otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist "
                 "or mask_chain or cc_stats_ or test_torch_cluster or public_name or adaptive_mean "
                 "or gauss_blur_kernel or adaptive_kernel or head_kernels or canny_head_kernel")
-    proc = subprocess.run(
+    test_log = tempfile.TemporaryFile(mode="w+")
+    test_proc = subprocess.Popen(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
          "--noconftest", "-p", "no:cacheprovider"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        cwd=ROOT, stdout=test_log, stderr=subprocess.STDOUT, text=True,
     )
-    tail = (proc.stdout.strip().splitlines() or ["(no output)"])[-1]
-    if proc.returncode != 0:
-        print(proc.stdout[-6000:], proc.stderr[-3000:], file=sys.stderr)
-        fail(f"the cuda-marked tests failed: {tail}")
-    if "skipped" in tail or "passed" not in tail:
-        fail(f"the cuda-marked tests did not all run: {tail}")
-    say(f"phase 3: cuda-marked tests ({', '.join(tests)}): {tail}")
+    atexit.register(lambda: test_proc.poll() is None and test_proc.kill())
 
     # ---- phase 4: every path on the card vs the CPU run -----------------
     mark("phase 4 starts")
@@ -1961,6 +1964,22 @@ def main() -> int:
                                                     dparams, card)
     launches_by_path.update(sharded_launches)
     say(f"phase 4: sharded walls (ms, the slowest rank) {json.dumps(sharded_walls)} on {card}")
+
+    mark("phase 3: the cuda-marked tests read")
+    try:
+        test_proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        test_proc.kill()
+        fail("the cuda-marked tests did not end within 600 s")
+    test_log.seek(0)
+    test_out = test_log.read()
+    tail = (test_out.strip().splitlines() or ["(no output)"])[-1]
+    if test_proc.returncode != 0:
+        print(test_out[-9000:], file=sys.stderr)
+        fail(f"the cuda-marked tests failed: {tail}")
+    if "skipped" in tail or "passed" not in tail:
+        fail(f"the cuda-marked tests did not all run: {tail}")
+    say(f"phase 3: cuda-marked tests ({', '.join(tests)}): {tail}")
 
     # ---- phase 4b: the seeded differential fuzz ----------------------------
     # a fixed seed and trial count (not a time budget): every run does the

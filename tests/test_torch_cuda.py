@@ -249,6 +249,42 @@ def test_canny_head_kernel_matches_plain(cuda, low, high):
     _assert_equal(edges[:3], canny_u8(crops[:3].cpu().contiguous(), low, high).to(cuda))
 
 
+# kernel O's widths: around a word (1-5), a warp's 32 columns, its 64-column
+# tile and two (63-65, 127-129), and the workload's 316, at H 1, 2, 3 and
+# 40 (its tiles are 64 rows)
+_CANNY_WIDTHS = tuple((2, hh, ww) for hh in (1, 2, 3, 40)
+                      for ww in (1, 2, 3, 4, 5, 31, 32, 33, 63, 64, 65, 127, 128, 129, 316))
+
+
+@pytest.mark.parametrize("low,high", [(-1, 0), (0, 2040), (2040, 2040), (12, 24)])
+def test_canny_head_kernel_widths_match_plain(cuda, low, high):
+    """Kernel O against its plain version at every width of
+    ``_CANNY_WIDTHS`` (random planes with a checkerboard unit), on views
+    ``x.reshape(-1)[k:]`` (k = 1, 2, 3: no row starts on a 4-byte boundary,
+    the funnel-shift staging and the byte stores), and on the sector and
+    tie planes of ``synthetic.canny_edge_planes``, at thresholds that keep
+    every NMS survivor, none above high, and none at all: one launch a
+    call, exact."""
+    gen = torch.Generator(device=cuda).manual_seed(low + 2 * high + 7)
+    planes = [torch.randint(0, 256, s, generator=gen, device=cuda, dtype=torch.uint8)
+              for s in _CANNY_WIDTHS]
+    for pl in planes:
+        pl[-1] = ((torch.arange(pl.shape[1], device=cuda)[:, None]
+                   + torch.arange(pl.shape[2], device=cuda)[None, :]) % 2) * 255
+    flat = torch.randint(0, 256, (3 * 37 * 45 + 3,), generator=gen, device=cuda,
+                         dtype=torch.uint8)
+    for k in (1, 2, 3):
+        planes.append(flat[k : k + 3 * 37 * 45].reshape(3, 37, 45))
+        assert planes[-1].is_contiguous() and planes[-1].data_ptr() % 4 == k
+    planes += [torch.from_numpy(canny_edge_planes(hh, ww, seed=hh + ww)).to(cuda)
+               for hh, ww in ((37, 45), (64, 128), (70, 131))]
+    reset_launches()
+    for x in planes:
+        got = canny_planes(x, low, high)
+        _assert_equal(got, canny_planes_plain(x, low, high))
+    assert LAUNCHES["canny_head"] == len(planes)
+
+
 def _planes(rng, shape, p, cuda):
     return torch.from_numpy(((rng.rand(*shape) > p) * 255).astype(np.uint8)).to(cuda)
 

@@ -78,10 +78,12 @@ _SIGNATURES = {
     "tik_seg_roi_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _P),
     # x, row_lo, row_hi, out, U, H, W, k, thr, mode, strip rows, stream
     "tik_median_probe": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, hist, U, H*W, stream
-    "tik_histogram": (_P, _P, _I, _L, _P),
-    # hist, thr, U, scale, stream
-    "tik_otsu_scan": (_P, _P, _I, ctypes.c_double, _P),
+    # x, hist (or null), partials (or null), U, H*W, chunk, CTAs a unit,
+    # stream
+    "tik_histogram": (_P, _P, _P, _I, _L, _L, _I, _P),
+    # hist (or null), partials (or null), partial rows a unit, thr, U,
+    # scale, stream
+    "tik_otsu_scan": (_P, _P, _I, _P, _I, ctypes.c_double, _P),
     # x, taps, row index table, column index table, out, U, H, W, k, stream
     "tik_gauss_blur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, taps, out, U, H, W, k, C, mode (0 mean, 1 BINARY_INV), stream

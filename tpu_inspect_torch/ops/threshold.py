@@ -6,14 +6,17 @@ scan replicates OpenCV's getThreshVal_Otsu_8u recurrence exactly in
 ``>`` keeping the first maximum); it is sequential over the 256 bins and
 vectorised over units only — a cumsum would round differently.
 
-:func:`histogram_u8` and :func:`otsu_threshold_from_hist` launch
-``csrc/otsu.cu`` for CUDA tensors (the histogram kernel, the scan kernel;
-the threshold stays on the device, no host copy) and run their plain
-versions, :func:`histogram_u8_plain` and
-:func:`otsu_threshold_from_hist_plain`, for CPU tensors.
+:func:`histogram_u8`, :func:`otsu_threshold_from_hist` and
+:func:`otsu_threshold` launch ``csrc/otsu.cu`` for CUDA tensors (the
+histogram kernel, the scan kernel, both; the threshold stays on the
+device, no host copy) and run their plain versions,
+:func:`histogram_u8_plain`, :func:`otsu_threshold_from_hist_plain` and
+:func:`otsu_threshold_plain`, for CPU tensors.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -79,18 +82,82 @@ def otsu_threshold_from_hist_plain(hist: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(best[:, 0] > 0, first, 0).to(torch.int32).to(hist.device)
 
 
-def histogram_u8(x: torch.Tensor) -> torch.Tensor:
-    """Per-unit 256-bin histogram. x: [U, H, W] uint8 -> [U, 256] int64."""
-    if x.device.type == "cpu":
-        return histogram_u8_plain(x)
-    check_planes(x, "histogram_u8")
+# a histogram CTA's least chunk: one 16-byte load for each of its 256 threads
+_HIST_MIN_CHUNK = 4096
+
+
+def hist_plan(u: int, hw: int, sms: int) -> tuple[int, int]:
+    """The histogram kernel's grid: (chunk, per_unit), ``per_unit`` CTAs of
+    ``chunk`` pixels each over every one of ``u`` units of ``hw`` pixels.
+
+    CTA ``p`` of a unit counts its pixels ``[p * chunk, min(hw, (p + 1) *
+    chunk))``: the ranges are disjoint, none is empty, and they cover the
+    unit. ``chunk`` is a multiple of 16, so every chunk of a unit shares
+    the unit's alignment. The grid takes at least two CTAs for each of the
+    card's ``sms`` SMs wherever the units hold that many chunks of
+    ``_HIST_MIN_CHUNK`` pixels (48 units of 315x316: 7 chunks of at most
+    16384 px a unit, 336 CTAs; a 3000x4096 capture: 273 of 45056 px, on
+    132 SMs); four a SM took longer on the card (PERF.md §6)."""
+    if hw <= 0:
+        return 16, 1
+    per = max(1, min(-(-2 * sms // max(u, 1)), -(-hw // _HIST_MIN_CHUNK)))
+    if per == 1:
+        return -(-hw // 16) * 16, 1
+    # rounded down, so at least per CTAs; to whole 4096-px steps (one
+    # 16-byte load a thread) where that leaves a chunk
+    chunk = hw // per // 16 * 16
+    if chunk >= _HIST_MIN_CHUNK:
+        chunk = chunk // _HIST_MIN_CHUNK * _HIST_MIN_CHUNK
+    return chunk, -(-hw // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _hist_launch(x: torch.Tensor, hist=None):
+    """One launch of the histogram kernel on [U, H, W] uint8 ``x``: its
+    counts added into ``hist`` ([U, 256] int64, zeroed), or, with ``hist``
+    None, written as [U * per_unit, 256] int32 partial rows (returned with
+    ``per_unit``)."""
     u, h, w = x.shape
-    hist = torch.zeros((u, 256), dtype=torch.int64, device=x.device)
+    chunk, per = hist_plan(u, h * w, _sm_count(x.device.index))
+    partials = None
+    if hist is None:
+        partials = torch.empty((u * per, 256), dtype=torch.int32, device=x.device)
     code = build.lib().tik_histogram(
-        x.data_ptr(), hist.data_ptr(), u, h * w, torch.cuda.current_stream(x.device).cuda_stream
+        x.data_ptr(), None if hist is None else hist.data_ptr(),
+        None if partials is None else partials.data_ptr(), u, h * w, chunk, per,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("histogram_u8", code)
     LAUNCHES["otsu"] += 1
+    return partials, per
+
+
+def _scan_launch(u: int, n: int, device, hist=None, partials=None, parts: int = 0):
+    """One launch of the scan kernel: [U] int32 thresholds from ``hist``
+    ([U, 256] int64) or from ``parts`` int32 partial rows a unit."""
+    thr = torch.empty((u,), dtype=torch.int32, device=device)
+    code = build.lib().tik_otsu_scan(
+        None if hist is None else hist.data_ptr(),
+        None if partials is None else partials.data_ptr(), parts, thr.data_ptr(), u,
+        1.0 / float(n), torch.cuda.current_stream(device).cuda_stream,
+    )
+    build.check("otsu_threshold_from_hist", code)
+    LAUNCHES["otsu"] += 1
+    return thr
+
+
+def histogram_u8(x: torch.Tensor) -> torch.Tensor:
+    """Per-unit 256-bin histogram. x: [U, H, W] uint8 -> [U, 256] int64
+    (one launch of the histogram kernel for a CUDA tensor)."""
+    if x.device.type == "cpu":
+        return histogram_u8_plain(x)
+    check_planes(x, "histogram_u8")
+    hist = torch.zeros((x.shape[0], 256), dtype=torch.int64, device=x.device)
+    _hist_launch(x, hist)
     return hist
 
 
@@ -98,7 +165,8 @@ def otsu_threshold_from_hist(hist: torch.Tensor, n: int) -> torch.Tensor:
     """getThreshVal_Otsu_8u from [U, 256] int64 counts summing to ``n``.
 
     Returns [U] int32 thresholds on the histogram's device: the scan kernel
-    for a CUDA histogram (one CTA a unit, one thread running the same double
+    for a CUDA histogram (one CTA a unit: one thread runs the carried
+    chains, then every thread one step's variance, with the same double
     operations in the same order), :func:`otsu_threshold_from_hist_plain`
     for a CPU one."""
     if hist.device.type == "cpu":
@@ -109,21 +177,20 @@ def otsu_threshold_from_hist(hist: torch.Tensor, n: int) -> torch.Tensor:
             f"otsu_threshold_from_hist: expected a contiguous [U, 256] int64 tensor, got "
             f"{hist.dtype} {tuple(hist.shape)}"
         )
-    u = hist.shape[0]
-    thr = torch.empty((u,), dtype=torch.int32, device=hist.device)
-    code = build.lib().tik_otsu_scan(
-        hist.data_ptr(), thr.data_ptr(), u, 1.0 / float(n),
-        torch.cuda.current_stream(hist.device).cuda_stream,
-    )
-    build.check("otsu_threshold_from_hist", code)
-    LAUNCHES["otsu"] += 1
-    return thr
+    return _scan_launch(hist.shape[0], n, hist.device, hist=hist)
 
 
 def otsu_threshold(x: torch.Tensor) -> torch.Tensor:
     """Per-unit Otsu threshold. x: [U, H, W] uint8 -> [U] int32 on x's
-    device (two launches of ``csrc/otsu.cu`` for a CUDA tensor)."""
-    return otsu_threshold_from_hist(histogram_u8(x), x.shape[-2] * x.shape[-1])
+    device: two launches of ``csrc/otsu.cu`` for a CUDA tensor (the
+    histogram as int32 partial rows, which the scan sums: no zeroed
+    buffer), :func:`otsu_threshold_plain` for a CPU one."""
+    if x.device.type == "cpu":
+        return otsu_threshold_plain(x)
+    check_planes(x, "otsu_threshold")
+    partials, per = _hist_launch(x)
+    return _scan_launch(x.shape[0], x.shape[-2] * x.shape[-1], x.device, partials=partials,
+                        parts=per)
 
 
 def otsu_threshold_plain(x: torch.Tensor) -> torch.Tensor:

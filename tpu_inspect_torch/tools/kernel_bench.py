@@ -1,6 +1,6 @@
-"""Time one form of kernel B, C, D, E, F, G, H, I, J, M, N or O at a time,
-checked exact against its plain version: the rig to iterate on a kernel
-without a whole chip_smoke run.
+"""Time one form of kernel B, C, D, E, F, G, H, I, J, M, N, O or the Otsu
+kernel at a time, checked exact against its plain version: the rig to
+iterate on a kernel without a whole chip_smoke run.
 
 The port of ``tools/kernel_bench.py`` (which times the JAX package's Pallas
 kernels one by one). Its planes are ``chip_smoke.py``'s: the standard
@@ -9,7 +9,9 @@ unit, made by the port's own engine on the card. Each form is run once
 and held against its plain version (exact: both give integers), then timed
 with CUDA events (``n`` calls in a row, median of ``reps``) beside the
 plain version and its byte bound (each input read once, kernel B's only
-on its ROI rows and their halo; the output written once, at 3.35 TB/s).
+on its ROI rows and their halo; the output written once, at 3.35 TB/s),
+and, where one PyTorch call computes the same function (the Otsu
+histogram's ``torch.bincount``), that call's time as ``library_ms``.
 
 Usage::
 
@@ -85,7 +87,7 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     from tpu_inspect_torch.ops.cc import label_components, largest_component
     from tpu_inspect_torch.ops.median import median_residual_mask
     from tpu_inspect_torch.ops.morphology import close_open_stages, rect_erode_stages
-    from tpu_inspect_torch.ops.threshold import otsu_threshold
+    from tpu_inspect_torch.ops.threshold import histogram_u8_plain, otsu_threshold
     from tpu_inspect_torch.synthetic import make_mold_image, standard_workload
 
     seg = SegmentationParams().validated()
@@ -148,6 +150,12 @@ def planes(dev: torch.device, small: bool = False) -> dict:
     # pass take it
     rows.update(lo1=rows["lo"][u0 : u0 + 1], hi1=rows["hi"][u0 : u0 + 1])
     crop1 = crops[u0 : u0 + 1].contiguous()
+    # the Otsu kernel's: the histograms its scan forms start from, and the
+    # library call's offset index (unit * 256 + value), built here so that
+    # its time is left out of the library form
+    hist_x = histogram_u8_plain(x)
+    x_idx = (x.reshape(x.shape[0], -1).to(torch.int64)
+             + 256 * torch.arange(x.shape[0], device=dev)[:, None]).reshape(-1)
     # kernel I's inputs: the erosion preview's unit (its seg mask, and the
     # largest component of its erosion for the 1-px inner erode); kernel
     # F's: the whole route's two planes and their labels, and a plane of
@@ -162,6 +170,8 @@ def planes(dev: torch.device, small: bool = False) -> dict:
         "seg_lab_w": label_components(seg_fill_w), "roi_lab_w": label_components(roi_pre_w),
         "iso_w": iso_w, "iso_lab_w": label_components(iso_w),
         "crops": crops, "whole": whole, "crop1": crop1, "x": x, **rows,
+        "hist_x": hist_x, "hist_x1": hist_x[u0 : u0 + 1].contiguous(), "x_idx": x_idx,
+        "n_x": x.shape[1] * x.shape[2],
         "roi_rows21_1": _roi_rows_bytes(crop1, 21, rows["lo1"], rows["hi1"]),
         **{f"roi_rows{k}": _roi_rows_bytes(crops, k, rows["lo"], rows["hi"]) for k in (21, 45)},
         **{f"roi_rows{k}_w": _roi_rows_bytes(whole, k, rows["lo_w"], rows["hi_w"])
@@ -198,8 +208,8 @@ def _stages(name: str):
 # threshold and the Canny method's defect tail on the 48 units), then D's four
 # paths (the 48 units' Canny hysteresis and the whole-image route's three),
 # E's, H's (median_k = 47, the engine's smallest k on H, and 101; one
-# unit; 47 on the whole plane), I's, F's, G's, J's, M's, N's and O's, and
-# the launch floor
+# unit; 47 on the whole plane), I's, F's, G's, J's, M's, N's, O's and the
+# Otsu kernel's, and the launch floor
 FORMS = {
     "B 48u k21 roi rows": ("median_residual", ("roi_rows21", "lo", "hi"),
                            lambda f, p, s: f(p["crops"], 21, THR, p["lo"], p["hi"], strip=s)),
@@ -288,10 +298,29 @@ FORMS = {
     # and on the whole plane
     "O canny head 48u": ("canny_head", ("crops",), lambda f, p, s: f(p["crops"], LOW, HIGH)),
     "O canny head whole": ("canny_head", ("whole",), lambda f, p, s: f(p["whole"], LOW, HIGH)),
+    # Otsu: the threshold (histogram and scan) on the 48 blurred crops, the
+    # headline's input, and on the blurred whole plane; the histogram alone;
+    # the scan alone on histograms built beforehand, of the 48 units and of
+    # one unit (the serial chain's floor: the scan's units run side by side)
+    "Otsu 48u": ("otsu", ("x",), lambda f, p, s: f(p["x"])),
+    "Otsu whole": ("otsu", ("x_w",), lambda f, p, s: f(p["x_w"])),
+    "Otsu hist 48u": ("otsu_hist", ("x",), lambda f, p, s: f(p["x"])),
+    "Otsu hist whole": ("otsu_hist", ("x_w",), lambda f, p, s: f(p["x_w"])),
+    "Otsu scan 48u": ("otsu_scan", ("hist_x",), lambda f, p, s: f(p["hist_x"], p["n_x"])),
+    "Otsu scan 1u": ("otsu_scan", ("hist_x1",), lambda f, p, s: f(p["hist_x1"], p["n_x"])),
     "launch floor": ("launch_floor", (), lambda f, p, s: f(p["whole"].device)),
 }
 # the kernels whose forms take a strip length
 STRIPPED = ("median_residual", "median_blur")
+# form -> one PyTorch call computing the same function on the same input,
+# its result reshaped as the kernel's: the histogram's bincount, over the
+# offset index of ``planes`` for the 48 units, on the flat plane for one
+LIBRARY = {
+    "Otsu hist 48u": lambda p: torch.bincount(p["x_idx"], minlength=256 * p["x"].shape[0])
+    .reshape(-1, 256),
+    "Otsu hist whole": lambda p: torch.bincount(p["x_w"].reshape(-1), minlength=256)
+    .reshape(1, 256),
+}
 
 
 def kernels() -> dict:
@@ -343,6 +372,10 @@ def kernels() -> dict:
             "gauss_blur": (gaussian.gaussian_blur_u8, blur_plain, False),
             "adaptive": (threshold.adaptive_threshold_inv, adaptive_plain, False),
             "canny_head": (canny.canny_planes, canny_plain, False),
+            "otsu": (threshold.otsu_threshold, threshold.otsu_threshold_plain, False),
+            "otsu_hist": (threshold.histogram_u8, threshold.histogram_u8_plain, False),
+            "otsu_scan": (threshold.otsu_threshold_from_hist,
+                          threshold.otsu_threshold_from_hist_plain, False),
             "launch_floor": (_launch_floor, _launch_floor_plain, False)}
 
 
@@ -407,14 +440,16 @@ def bench(forms=tuple(FORMS), device="cuda", small: bool = False, n: int = 20,
     """Check and time each of ``forms`` (B's and H's once for each of
     ``strips``, None their default); returns one dict a form and strip
     (form, kernel, strip, shape, max_abs_err, ms, ms_flag_each_call,
-    plain_ms, bound_ms, where). For a kernel with a bound flag, ``ms``
+    plain_ms, bound_ms, library_ms, where; library_ms None where
+    ``LIBRARY`` has no call for the form). For a kernel with a bound flag, ``ms``
     passes every call one flag, read after the timing (as the engine's
     entry points read theirs once a call), and ``ms_flag_each_call`` lets
     the wrapper read its own flag after each launch, a host wait a call
     (None for B and H, which have no flag). With ``profile`` (card only)
     each row also has ``device``: [name, ms, launches] per kernel and call
     under ``torch.profiler``. Raises if a form differs from its plain
-    version or a kernel set its flag."""
+    version (or its library call from the kernel) or a kernel set its
+    flag."""
     from functools import partial
 
     from tpu_inspect_torch.device import resolve_device
@@ -445,6 +480,13 @@ def bench(forms=tuple(FORMS), device="cuda", small: bool = False, n: int = 20,
             moved = sum(p[k] if isinstance(p[k], int) else p[k].numel() * p[k].element_size()
                         for k in inputs)
             moved += sum(g.numel() * g.element_size() for g in gots)
+            library_ms = None
+            if form in LIBRARY:
+                lib = LIBRARY[form](p)
+                if lib.dtype != gots[0].dtype or not torch.equal(lib, gots[0]):
+                    raise RuntimeError(f"kernel_bench: {form}'s library call differs from the "
+                                       f"kernel")
+                library_ms = _ms(lambda: LIBRARY[form](p), dev, n, reps)
             flag = error_flag(dev)
             one_flag = partial(fast, err=flag) if flagged and dev.type == "cuda" else fast
             rows.append({
@@ -453,7 +495,8 @@ def bench(forms=tuple(FORMS), device="cuda", small: bool = False, n: int = 20,
                 "ms": _ms(lambda: call(one_flag, p, strip), dev, n, reps),
                 "ms_flag_each_call": (_ms(lambda: call(fast, p, strip), dev, n, reps)
                                       if flagged else None),
-                "plain_ms": plain_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "where": where,
+                "plain_ms": plain_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                "library_ms": library_ms, "where": where,
             })
             if profile and dev.type == "cuda":
                 from tpu_inspect_torch.utils.profile import profile_device
@@ -489,8 +532,9 @@ def main(argv=None) -> list[dict]:
         flag = r["ms_flag_each_call"]
         flag = "no flag" if flag is None else f"{flag:.4f} reading the flag each call"
         strip = "" if r["strip"] is None else f" S={r['strip']}"
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         print(f"{r['form'] + strip:32s} {shape:>12s} {r['ms']:9.4f} ms ({flag}; plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us) exact, on "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us{lib}) exact, on "
               f"{r['where']}")
         for name, ms, count in r.get("device", []):
             print(f"    {ms:9.4f} ms x{count:g}  {name}")

@@ -4,7 +4,9 @@ Compiles one ``csrc`` source to a cubin for the H100 (``nvcc -cubin
 -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3``), disassembles it
 with ``cuobjdump -sass`` and prints, for every kernel in it, the static
 count of each opcode that the kernels' cost models name (shared loads and
-stores by width, FFMA, FADD, FMUL, IMAD, local-memory LDL/STL, MOV), over
+stores by width, FFMA, FADD, FMUL, IMAD, local-memory LDL/STL, MOV, shared
+atomics, the double operations and MUFU: a double division is one
+MUFU.RCP64H and its refinements), over
 the whole function and over each loop (the instructions between a
 backward branch and its target). It runs where ``nvcc`` and
 ``cuobjdump`` are (the card's host), e.g.::
@@ -29,7 +31,7 @@ from pathlib import Path
 # the opcodes counted (by their name before the first '.'), and LDS/STS
 # also by width
 COUNTED = ("LDS", "STS", "LDG", "STG", "LDL", "STL", "FFMA", "FADD", "FMUL", "IMAD", "MOV",
-           "BRA")
+           "BRA", "ATOMS", "DFMA", "DMUL", "DADD", "MUFU")
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
