@@ -87,6 +87,7 @@ from tpu_inspect_torch.ops.threshold import (
     otsu_threshold,
     threshold_binary,
 )
+from tpu_inspect_torch.utils.trace import span
 
 
 @dataclass
@@ -297,19 +298,21 @@ def _seg_mask(crops, seg, err=None):
     the bound flag the tail's kernels set
     (:func:`tpu_inspect_torch.kernels.error_flag`), read by the caller;
     without one each launch reads its own."""
-    x = crops
-    if seg.gaussian_blur and seg.gaussian_blur > 0:
-        x = gaussian_blur_u8(x, as_odd(seg.gaussian_blur))
-    k = _morph_k(seg)
-    stages = close_open_stages(k) if k > 1 else ()
-    if seg.method == "adaptive":
-        # the adaptive plane is already 0/255: the tail binarizes x > 0
-        bs = max(3, int(seg.adapt_block) | 1)
-        x, thr = adaptive_threshold_inv(x, bs, int(seg.adapt_C)), None
-    else:
-        thr = otsu_threshold(x)
-    tail = _whole_tail if _whole_route(*crops.shape[1:]) else seg_tail
-    return tail(x, stages=stages, fill=True, out_largest=False, thr=thr, err=err)
+    with span("seg.head"):
+        x = crops
+        if seg.gaussian_blur and seg.gaussian_blur > 0:
+            x = gaussian_blur_u8(x, as_odd(seg.gaussian_blur))
+        if seg.method == "adaptive":
+            # the adaptive plane is already 0/255: the tail binarizes x > 0
+            bs = max(3, int(seg.adapt_block) | 1)
+            x, thr = adaptive_threshold_inv(x, bs, int(seg.adapt_C)), None
+        else:
+            thr = otsu_threshold(x)
+    with span("seg.tail"):
+        k = _morph_k(seg)
+        stages = close_open_stages(k) if k > 1 else ()
+        tail = _whole_tail if _whole_route(*crops.shape[1:]) else seg_tail
+        return tail(x, stages=stages, fill=True, out_largest=False, thr=thr, err=err)
 
 
 def _segment(crops, seg, exclusions, ref_centroids, is_reference, err=None):
@@ -318,49 +321,51 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference, err=None):
     as for :func:`_seg_mask`."""
     u, h, w = crops.shape
     dev = crops.device
-    rects, circles = pack_exclusions(exclusions)
-    ref_arr, ref_ok = ref_centroid_arrays(ref_centroids, u)
     mask, st = _seg_mask(crops, seg, err)
-    area, sx, sy = st[:, 0], st[:, 1], st[:, 2]
-    has_fg = st[:, 3] > 0
+    with span("seg.align"):
+        rects, circles = pack_exclusions(exclusions)
+        ref_arr, ref_ok = ref_centroid_arrays(ref_centroids, u)
+        area, sx, sy = st[:, 0], st[:, 1], st[:, 2]
+        has_fg = st[:, 3] > 0
 
-    if is_reference:
-        dx = torch.zeros((u,), dtype=torch.int32, device=dev)
-        dy = torch.zeros((u,), dtype=torch.int32, device=dev)
-    else:
-        # dx, dy = int(round(c1 - c0)) with Python's banker's rounding
-        # (indexing_ui.py:2310-2311); torch.round rounds half to even
-        cnt = area.clamp(min=1).to(torch.float64)
-        centroid = torch.stack(
-            [sx.to(torch.float64) / cnt, sy.to(torch.float64) / cnt], dim=-1
-        )
-        ref = _upload(ref_arr, dev)
-        ok = _upload(ref_ok, dev) & has_fg
-        delta = torch.round(centroid - ref).to(torch.int32)
-        dx = torch.where(ok, delta[:, 0], 0).to(torch.int32)
-        dy = torch.where(ok, delta[:, 1], 0).to(torch.int32)
+        if is_reference:
+            dx = torch.zeros((u,), dtype=torch.int32, device=dev)
+            dy = torch.zeros((u,), dtype=torch.int32, device=dev)
+        else:
+            # dx, dy = int(round(c1 - c0)) with Python's banker's rounding
+            # (indexing_ui.py:2310-2311); torch.round rounds half to even
+            cnt = area.clamp(min=1).to(torch.float64)
+            centroid = torch.stack(
+                [sx.to(torch.float64) / cnt, sy.to(torch.float64) / cnt], dim=-1
+            )
+            ref = _upload(ref_arr, dev)
+            ok = _upload(ref_ok, dev) & has_fg
+            delta = torch.round(centroid - ref).to(torch.int32)
+            dx = torch.where(ok, delta[:, 0], 0).to(torch.int32)
+            dy = torch.where(ok, delta[:, 1], 0).to(torch.int32)
 
-    if rects.shape[0] or circles.shape[0]:
-        # on the reference image every shift is 0, so the zone is
-        # unit-invariant: rasterize it once at [1, H, W] and broadcast
-        zone = (
-            exclusion_zone((h, w), rects, circles, dx[:1], dy[:1])
-            if is_reference
-            else exclusion_zone((h, w), rects, circles, dx, dy)
-        )
-        mask = torch.where(zone, torch.zeros_like(mask), mask)
-    sums = torch.stack([sx, sy, area], dim=-1).to(torch.int64)
-    return mask, sums, has_fg, torch.stack([dx, dy], dim=-1)
+        if rects.shape[0] or circles.shape[0]:
+            # on the reference image every shift is 0, so the zone is
+            # unit-invariant: rasterize it once at [1, H, W] and broadcast
+            zone = (
+                exclusion_zone((h, w), rects, circles, dx[:1], dy[:1])
+                if is_reference
+                else exclusion_zone((h, w), rects, circles, dx, dy)
+            )
+            mask = torch.where(zone, torch.zeros_like(mask), mask)
+        sums = torch.stack([sx, sy, area], dim=-1).to(torch.int64)
+        return mask, sums, has_fg, torch.stack([dx, dy], dim=-1)
 
 
 def _defect_roi(seg_masks, erode_px: int, err=None):
     """ROI: binarize, (2n+1)^2 erode (n = ``erode_px``), largest 8-CC (holes
     kept) -> (roi u8, stats [U, 8], int32 from kernel A, int64 on the
     whole-image route) (indexing_ui.py:1480-1516)."""
-    tail = _whole_tail if _whole_route(*seg_masks.shape[1:]) else seg_tail
-    return tail(
-        seg_masks, stages=rect_erode_stages(erode_px), fill=False, out_largest=True, err=err,
-    )
+    with span("defect.roi"):
+        tail = _whole_tail if _whole_route(*seg_masks.shape[1:]) else seg_tail
+        return tail(
+            seg_masks, stages=rect_erode_stages(erode_px), fill=False, out_largest=True, err=err,
+        )
 
 
 def _candidates(crops, params: DefectParams, roi_stats=None, err=None):
@@ -370,20 +375,21 @@ def _candidates(crops, params: DefectParams, roi_stats=None, err=None):
     full median blur (kernel H) over every row, and THRESH_BINARY of
     |x - bg| (``engine.py:461-465`` of the JAX package). ``err``: the bound
     flag of Canny's kernel D."""
-    thr = int(params.threshold)
-    if params.method == "canny":
-        return canny_u8(crops, max(1, thr // 2), max(2, thr), err=err)
-    k = _median_k(params)
-    if k * k >= 2048:
-        bg = median_blur_u8(crops, k)
-        return threshold_binary((crops.to(torch.int16) - bg.to(torch.int16)).abs(), thr)
-    if roi_stats is None:
-        return median_residual_mask(crops, k, thr)
-    return median_residual_mask(
-        crops, k, thr,
-        row_lo=roi_stats[:, 4].to(torch.int32).contiguous(),
-        row_hi=roi_stats[:, 5].to(torch.int32).contiguous(),
-    )
+    with span("defect.cand"):
+        thr = int(params.threshold)
+        if params.method == "canny":
+            return canny_u8(crops, max(1, thr // 2), max(2, thr), err=err)
+        k = _median_k(params)
+        if k * k >= 2048:
+            bg = median_blur_u8(crops, k)
+            return threshold_binary((crops.to(torch.int16) - bg.to(torch.int16)).abs(), thr)
+        if roi_stats is None:
+            return median_residual_mask(crops, k, thr)
+        return median_residual_mask(
+            crops, k, thr,
+            row_lo=roi_stats[:, 4].to(torch.int32).contiguous(),
+            row_hi=roi_stats[:, 5].to(torch.int32).contiguous(),
+        )
 
 
 def _defect_tail(cand, roi, roi_stats, params: DefectParams, whole: bool, err=None):
@@ -391,22 +397,23 @@ def _defect_tail(cand, roi, roi_stats, params: DefectParams, whole: bool, err=No
     ([U, 8]: area, ..., row bounds) -> (masks u8, found bool, area, verdict
     bool): kernel C, or with ``whole`` the whole-image route's
     :func:`_whole_blobs` (indexing_ui.py:1519-1572, :1669-1700)."""
-    roi_area = roi_stats[:, 0]
-    # max_area = max(min_area, int(roi_area * 0.98)): truncation of the
-    # double product; the filter compares exact 2x contour areas
-    min_area = int(params.min_area)
-    max_area = torch.clamp(
-        torch.floor(roi_area.to(torch.float64) * float(params.max_area_frac)),
-        min=min_area,
-    ).to(torch.int32)
-    filt = _whole_blobs if whole else blob_filter
-    out, area = filt(
-        cand, (2 * max_area).contiguous(), min_x2=2 * min_area, roi=roi,
-        pre_open=params.method == "threshold", err=err,
-    )
-    found = area > 0
-    verdict = found & (area >= min_area)
-    return out, found, area, verdict
+    with span("defect.filter"):
+        roi_area = roi_stats[:, 0]
+        # max_area = max(min_area, int(roi_area * 0.98)): truncation of the
+        # double product; the filter compares exact 2x contour areas
+        min_area = int(params.min_area)
+        max_area = torch.clamp(
+            torch.floor(roi_area.to(torch.float64) * float(params.max_area_frac)),
+            min=min_area,
+        ).to(torch.int32)
+        filt = _whole_blobs if whole else blob_filter
+        out, area = filt(
+            cand, (2 * max_area).contiguous(), min_x2=2 * min_area, roi=roi,
+            pre_open=params.method == "threshold", err=err,
+        )
+        found = area > 0
+        verdict = found & (area >= min_area)
+        return out, found, area, verdict
 
 
 def _defect_from_roi(crops, roi, roi_stats, params: DefectParams, err=None):
@@ -443,22 +450,26 @@ def _segment_roi(crops, seg: SegmentationParams, exclusions, erode_px: int, err=
     then K with the exclusion zone rasterized once at zero shift. Returns
     the :func:`_segment` tuple and (ROI u8, ROI stats [U, 8] int32)."""
     u, h, w = crops.shape
-    x = crops
-    if seg.gaussian_blur and seg.gaussian_blur > 0:
-        x = gaussian_blur_u8(x, as_odd(seg.gaussian_blur))
-    k = _morph_k(seg)
-    stages = close_open_stages(k) if k > 1 else ()
-    rects, circles = pack_exclusions(exclusions)
-    zone = None
-    if rects.shape[0] or circles.shape[0]:
-        z = torch.zeros((1,), dtype=torch.int32, device=crops.device)
-        zone = exclusion_zone((h, w), rects, circles, z, z)[0]
-    mask, st, roi, roi_st = seg_roi_tail(
-        x, stages, rect_erode_stages(erode_px), otsu_threshold(x), zone, err=err
-    )
-    sums = torch.stack([st[:, 1], st[:, 2], st[:, 0]], dim=-1).to(torch.int64)
-    shifts = torch.zeros((u, 2), dtype=torch.int32, device=crops.device)
-    return (mask, sums, st[:, 3] > 0, shifts), (roi, roi_st)
+    with span("seg.head"):
+        x = crops
+        if seg.gaussian_blur and seg.gaussian_blur > 0:
+            x = gaussian_blur_u8(x, as_odd(seg.gaussian_blur))
+        thr = otsu_threshold(x)
+    with span("seg.align"):
+        rects, circles = pack_exclusions(exclusions)
+        zone = None
+        if rects.shape[0] or circles.shape[0]:
+            z = torch.zeros((1,), dtype=torch.int32, device=crops.device)
+            zone = exclusion_zone((h, w), rects, circles, z, z)[0]
+        shifts = torch.zeros((u, 2), dtype=torch.int32, device=crops.device)
+    with span("seg.tail"):
+        k = _morph_k(seg)
+        stages = close_open_stages(k) if k > 1 else ()
+        mask, st, roi, roi_st = seg_roi_tail(
+            x, stages, rect_erode_stages(erode_px), thr, zone, err=err
+        )
+        sums = torch.stack([st[:, 1], st[:, 2], st[:, 0]], dim=-1).to(torch.int64)
+        return (mask, sums, st[:, 3] > 0, shifts), (roi, roi_st)
 
 
 def _inspect_image_device(image, origins, unit_hw, seg: SegmentationParams,
@@ -474,17 +485,27 @@ def _inspect_image_device(image, origins, unit_hw, seg: SegmentationParams,
     :func:`tpu_inspect_torch.kernels.error_flag`) every kernel with a bound
     (A, C, K; D, E, F, G on the whole-image route; Canny's D) sets it
     instead of being read one by one, and the caller reads it where it
-    copies the results out: the program then waits for the card nowhere."""
-    crops = gather_crops(image, origins, unit_hw)
-    if with_defects and is_reference and _seg_roi_chain_fits(crops.shape, seg):
-        seg_out, (roi, roi_st) = _segment_roi(
-            crops, seg, exclusions, int(defect.erode_px), err
-        )
-        return seg_out + (_defect_from_roi(crops, roi, roi_st, defect, err),)
-    seg_out = _segment(crops, seg, exclusions, ref_centroids, is_reference, err)
-    if not with_defects:
-        return seg_out + (None,)
-    return seg_out + (_defect(crops, seg_out[0], defect, err),)
+    copies the results out: the program then waits for the card nowhere.
+
+    Each call is the root span of one frame
+    (:mod:`tpu_inspect_torch.utils.trace`), named by its route:
+    ``frame.chained``, ``frame.whole`` or ``frame.split``."""
+    shape = (len(origins), *unit_hw)
+    chained = with_defects and is_reference and _seg_roi_chain_fits(shape, seg)
+    route = "frame.chained" if chained else "frame.whole" if _whole_route(*unit_hw) else (
+        "frame.split")
+    with span(route):
+        with span("gather"):
+            crops = gather_crops(image, origins, unit_hw)
+        if chained:
+            seg_out, (roi, roi_st) = _segment_roi(
+                crops, seg, exclusions, int(defect.erode_px), err
+            )
+            return seg_out + (_defect_from_roi(crops, roi, roi_st, defect, err),)
+        seg_out = _segment(crops, seg, exclusions, ref_centroids, is_reference, err)
+        if not with_defects:
+            return seg_out + (None,)
+        return seg_out + (_defect(crops, seg_out[0], defect, err),)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -3,12 +3,19 @@
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made (a plain
 integer per name, incremented where the wrapper launches the kernel and
 nowhere else), so a run can show that the main path went through the
-kernels. Reset it with :func:`reset_launches`.
+kernels. Reset it with :func:`reset_launches`. The helper that counts a
+launch, :class:`Kernel`, is the one that opens the wrapper's span
+(``kernel.<name>`` of :mod:`tpu_inspect_torch.utils.trace`): one record of
+the kernels, counts and host time alike.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from tpu_inspect_torch.utils import trace
 
 LAUNCHES: dict[str, int] = {
     "seg_tail": 0, "median_residual": 0, "blob_filter": 0, "propagate": 0, "label": 0,
@@ -21,6 +28,34 @@ LAUNCHES: dict[str, int] = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+class Kernel:
+    """The bookkeeping of hand kernel ``name`` (a key of ``LAUNCHES``).
+    Decorating a wrapper with it runs each call of the wrapper, from its
+    first check to its launch's return (the plain version on the CPU), in
+    the span ``kernel.<name>``; :meth:`launched` counts one launch, where
+    the wrapper has launched and nowhere else."""
+
+    __slots__ = ("name", "span")
+
+    def __init__(self, name: str):
+        if name not in LAUNCHES:
+            raise KeyError(f"no kernel {name!r} in LAUNCHES")
+        self.name, self.span = name, f"kernel.{name}"
+
+    def __call__(self, wrapper):
+        span = self.span
+
+        @functools.wraps(wrapper)
+        def spanned(*args, **kwargs):
+            with trace.span(span):
+                return wrapper(*args, **kwargs)
+
+        return spanned
+
+    def launched(self) -> None:
+        LAUNCHES[self.name] += 1
 
 
 def error_flag(device) -> torch.Tensor:

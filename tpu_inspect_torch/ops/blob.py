@@ -23,13 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import (
-    LAUNCHES,
-    build,
-    check_planes,
-    check_vector,
-    error_flag,
-)
+from tpu_inspect_torch.kernels import Kernel, build, check_planes, check_vector, error_flag
 from tpu_inspect_torch.ops.blob_select import blob_select_plain, contour_table
 from tpu_inspect_torch.ops.cc import label_components_plain
 from tpu_inspect_torch.ops.hole_fill import exterior_background_plain
@@ -38,6 +32,8 @@ from tpu_inspect_torch.ops.morphology import (
     open_stages,
     stage_program_tensor,
 )
+
+_BLOB_FILTER = Kernel("blob_filter")
 
 
 def candidate_mask(fg, roi=None, pre_open=False, chain=morph_chain_plain) -> torch.Tensor:
@@ -77,6 +73,7 @@ def blob_unit_words(h: int, w: int) -> int:
     return 2 * n + max(2 * ((h + 1) // 2) * ((w + 1) // 2), 5 * n)
 
 
+@_BLOB_FILTER
 def blob_filter(fg, max_x2, *, min_x2: int, roi=None, pre_open=False, err=None):
     """fg [U, H, W] uint8 candidate plane, max_x2 [U] int32 ->
     (kept filled mask [U, H, W] uint8 0/255, pixel area [U] int32).
@@ -110,7 +107,7 @@ def blob_filter(fg, max_x2, *, min_x2: int, roi=None, pre_open=False, err=None):
         torch.cuda.current_stream(fg.device).cuda_stream,
     )
     build.check("blob_filter", code)
-    LAUNCHES["blob_filter"] += 1
+    _BLOB_FILTER.launched()
     if err is None:
         build.check_bounded("blob_filter", flag)
     return out, area

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from tpu_inspect_torch.kernels import (
-    LAUNCHES,
+    Kernel,
     as_planes,
     build,
     check_labels,
@@ -31,6 +31,8 @@ from tpu_inspect_torch.kernels import (
 )
 from tpu_inspect_torch.ops._contour_table import CONTOUR_TABLE_X2
 from tpu_inspect_torch.ops.contour import contour_sums_x2
+
+_BLOB_SELECT = Kernel("blob_select")
 
 
 @functools.lru_cache(maxsize=8)
@@ -62,6 +64,7 @@ def blob_select_plain(fill_labels, top, ext, max_x2, *, min_x2: int):
     return out.to(torch.uint8) * 255, area
 
 
+@_BLOB_SELECT
 def blob_select(fill_labels, top, ext, max_x2, *, min_x2: int, err=None):
     """Keep the fill regions whose top-level blob has
     ``min_x2 <= 2*contourArea <= max_x2[u]`` and paint them.
@@ -98,7 +101,7 @@ def blob_select(fill_labels, top, ext, max_x2, *, min_x2: int, err=None):
         int(min_x2), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("blob_select", code)
-    LAUNCHES["blob_select"] += 1
+    _BLOB_SELECT.launched()
     if err is None:
         build.check_bounded("blob_select", flag)
     return out, area

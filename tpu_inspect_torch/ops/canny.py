@@ -24,8 +24,10 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes
+from tpu_inspect_torch.kernels import Kernel, build, check_planes
 from tpu_inspect_torch.ops.flood import propagate
+
+_CANNY_HEAD = Kernel("canny_head")
 
 _TG22 = 13573  # tan(22.5 deg) * 2^15, OpenCV's CANNY_SHIFT fixed point
 
@@ -94,6 +96,7 @@ def canny_planes_plain(x: torch.Tensor, low: int, high: int):
 _MAG_MAX = 2040
 
 
+@_CANNY_HEAD
 def canny_planes(x: torch.Tensor, low: int, high: int):
     """The hysteresis inputs of :func:`canny_u8`: (strong, cand), [U, H, W]
     bool each — NMS survivors above ``high`` and above ``low`` (their order
@@ -114,7 +117,7 @@ def canny_planes(x: torch.Tensor, low: int, high: int):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("canny_planes", code)
-    LAUNCHES["canny_head"] += 1
+    _CANNY_HEAD.launched()
     return strong, cand
 
 

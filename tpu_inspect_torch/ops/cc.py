@@ -29,7 +29,11 @@ import functools
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build, check_labels, error_flag
+from tpu_inspect_torch.kernels import Kernel, as_planes, build, check_labels, error_flag
+
+_LABEL = Kernel("label")
+_CC_STATS = Kernel("cc_stats")
+_LABEL_STATS = Kernel("label_stats")
 
 BIG = 2**30
 _K = 2**31  # > every label value; keys stay in int64
@@ -86,6 +90,7 @@ def label_components_plain(fg: torch.Tensor) -> torch.Tensor:
     return propagate_min(init, fg, conn8=True).to(torch.int32)
 
 
+@_LABEL
 def label_components(fg: torch.Tensor, plan: str = "crc", *, err=None) -> torch.Tensor:
     """fg [U, H, W] bool (or uint8, nonzero = fg) -> int32 labels: the
     raster-first pixel index ``y*W + x`` of each 8-connected component,
@@ -110,7 +115,7 @@ def label_components(fg: torch.Tensor, plan: str = "crc", *, err=None) -> torch.
         u, h, w, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("label_components", code)
-    LAUNCHES["label"] += 1
+    _LABEL.launched()
     if err is None:
         build.check_bounded("label_components", flag)
     return out
@@ -182,6 +187,7 @@ def component_stats_plain(labels: torch.Tensor, fg: torch.Tensor):
     return mask, stats
 
 
+@_CC_STATS
 def component_stats(labels: torch.Tensor, fg: torch.Tensor, *, err=None):
     """Largest 8-connected component per unit from given labels; kernel F.
 
@@ -218,7 +224,7 @@ def component_stats(labels: torch.Tensor, fg: torch.Tensor, *, err=None):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("component_stats", code)
-    LAUNCHES["cc_stats"] += 1
+    _CC_STATS.launched()
     if err is None:
         build.check_bounded("component_stats", flag)
     return mask.view(torch.bool), stats
@@ -285,6 +291,7 @@ def label_stats_cluster(u: int, max_cluster: int, sms: int) -> int:
     return max(1, min(max_cluster, sms // max(1, u)))
 
 
+@_LABEL_STATS
 def largest_component_sums(fg: torch.Tensor, err=None):
     """Largest 8-connected component per unit from the plane itself; kernel
     J (the port of :func:`tpu_inspect.ops.cc.largest_component_sums` on its
@@ -325,7 +332,7 @@ def largest_component_sums(fg: torch.Tensor, err=None):
         u, h, w, cmax, optin, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("largest_component_sums", code)
-    LAUNCHES["label_stats"] += 1
+    _LABEL_STATS.launched()
     if err is None:
         build.check_bounded("largest_component_sums", flag)
     return mask.view(torch.bool), stats

@@ -18,8 +18,10 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build, error_flag
+from tpu_inspect_torch.kernels import Kernel, as_planes, build, error_flag
 from tpu_inspect_torch.ops.cc import BIG, propagate_min
+
+_PROPAGATE = Kernel("propagate")
 
 
 def _border(shape, device) -> torch.Tensor:
@@ -40,6 +42,7 @@ def propagate_plain(seed, domain, conn8: bool, border_seed: bool = False):
     return propagate_min(init, dom, conn8=bool(conn8)) == 0
 
 
+@_PROPAGATE
 def propagate(seed, domain, conn8: bool, border_seed: bool = False, err=None):
     """Reachability of ``seed & domain`` through ``domain``.
 
@@ -74,7 +77,7 @@ def propagate(seed, domain, conn8: bool, border_seed: bool = False, err=None):
         int(bool(conn8)), int(bool(border_seed)), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("propagate", code)
-    LAUNCHES["propagate"] += 1
+    _PROPAGATE.launched()
     if err is None:
         build.check_bounded("propagate", flag)
     return out.view(torch.bool)

@@ -26,16 +26,13 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import (
-    LAUNCHES,
-    build,
-    check_planes,
-    check_vector,
-    error_flag,
-)
+from tpu_inspect_torch.kernels import Kernel, build, check_planes, check_vector, error_flag
 from tpu_inspect_torch.ops.cc import largest_component
 from tpu_inspect_torch.ops.hole_fill import exterior_background_plain
 from tpu_inspect_torch.ops.morphology import morph_chain_plain, stage_program_tensor
+
+_SEG_TAIL = Kernel("seg_tail")
+_SEG_ROI_TAIL = Kernel("seg_roi_tail")
 
 STAT_FIELDS = ("area", "sx", "sy", "has_fg", "row_lo", "row_hi", "col_lo", "col_hi")
 
@@ -73,6 +70,7 @@ def seg_tail_plain(x, stages=(), fill=False, out_largest=False, thr=None):
     return out.to(torch.uint8) * 255, stats.to(torch.int32)
 
 
+@_SEG_TAIL
 def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None, *, err=None):
     """x [U, H, W] uint8 (gray with ``thr`` [U] int32, else any >0 = fg) ->
     (mask [U, H, W] uint8 0/255, stats [U, 8] int32).
@@ -102,7 +100,7 @@ def seg_tail(x, stages=(), fill=False, out_largest=False, thr=None, *, err=None)
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("seg_tail", code)
-    LAUNCHES["seg_tail"] += 1
+    _SEG_TAIL.launched()
     if err is None:
         build.check_bounded("seg_tail", flag)
     return out, stats
@@ -119,6 +117,7 @@ def seg_roi_tail_plain(x, stages, roi_stages, thr, zone=None):
     return mask, stats, roi, roi_stats
 
 
+@_SEG_ROI_TAIL
 def seg_roi_tail(x, stages, roi_stages, thr, zone=None, *, err=None):
     """The chained seg tail + shared exclusion zone + ROI tail of the
     reference capture.
@@ -164,7 +163,7 @@ def seg_roi_tail(x, stages, roi_stages, thr, zone=None, *, err=None):
         u, h, w, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("seg_roi_tail", code)
-    LAUNCHES["seg_roi_tail"] += 1
+    _SEG_ROI_TAIL.launched()
     if err is None:
         build.check_bounded("seg_roi_tail", flag)
     return mask, stats, roi, roi_stats

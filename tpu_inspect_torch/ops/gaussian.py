@@ -23,7 +23,10 @@ import functools
 import numpy as np
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes
+from tpu_inspect_torch.kernels import Kernel, build, check_planes
+
+_GAUSS_BLUR = Kernel("gauss_blur")
+ADAPTIVE = Kernel("adaptive")
 
 _SMALL_TAB = {
     1: [1.0],
@@ -96,6 +99,7 @@ def gaussian_blur_u8_plain(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch
     return ((acc + 32768) >> 16).clamp(0, 255).to(torch.uint8)
 
 
+@_GAUSS_BLUR
 def gaussian_blur_u8(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch.Tensor:
     """cv2.GaussianBlur(CV_8U, (k, k), sigma) bit-exact: kernel M for a
     contiguous [U, H, W] uint8 CUDA tensor (one launch; k odd, 3-31, the
@@ -119,7 +123,7 @@ def gaussian_blur_u8(x: torch.Tensor, k: int, sigma: float = 0.0) -> torch.Tenso
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("gaussian_blur_u8", code)
-    LAUNCHES["gauss_blur"] += 1
+    _GAUSS_BLUR.launched()
     return out
 
 
@@ -224,10 +228,11 @@ def _adaptive_launch(x: torch.Tensor, block_size: int, C: int, compare: bool,
         int(compare), torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(name, code)
-    LAUNCHES["adaptive"] += 1
+    ADAPTIVE.launched()
     return out
 
 
+@ADAPTIVE
 def adaptive_gaussian_mean(x: torch.Tensor, block_size: int) -> torch.Tensor:
     """The uint8 Gaussian local mean of cv2.adaptiveThreshold (GAUSSIAN_C):
     kernel N for a contiguous [U, H, W] uint8 CUDA tensor (one launch),

@@ -31,7 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes, check_vector
+from tpu_inspect_torch.kernels import Kernel, build, check_planes, check_vector
+
+_MEDIAN_RESIDUAL = Kernel("median_residual")
+_MEDIAN_BLUR = Kernel("median_blur")
 
 # elements of the [U, rows, W, k, k] comparison block per chunk (~64 MB)
 _CHUNK_ELEMS = 1 << 26
@@ -126,6 +129,7 @@ def median_residual_mask(x, k: int, thr: int, row_lo=None, row_hi=None):
     return _median_residual(x, k, thr, row_lo, row_hi)
 
 
+@_MEDIAN_RESIDUAL
 def _median_residual(x, k: int, thr: int, row_lo=None, row_hi=None, strip=None):
     """:func:`median_residual_mask` with the kernel's strip rows given
     (None: :func:`strip_rows`); the result does not depend on them. The
@@ -148,7 +152,7 @@ def _median_residual(x, k: int, thr: int, row_lo=None, row_hi=None, strip=None):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("median_residual", err)
-    LAUNCHES["median_residual"] += 1
+    _MEDIAN_RESIDUAL.launched()
     return out
 
 
@@ -214,6 +218,7 @@ def median_blur_u8(x, k: int, rows_per_step: int = 5):
     return _median_blur(x, k, rows_per_step=rows_per_step)
 
 
+@_MEDIAN_BLUR
 def _median_blur(x, k: int, strip=None, rows_per_step: int = 5):
     """:func:`median_blur_u8` with the kernel's strip rows given (None:
     :func:`strip_rows`); the result does not depend on them. The tests and
@@ -234,5 +239,5 @@ def _median_blur(x, k: int, strip=None, rows_per_step: int = 5):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("median_blur_u8", err)
-    LAUNCHES["median_blur"] += 1
+    _MEDIAN_BLUR.launched()
     return out

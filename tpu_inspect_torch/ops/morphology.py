@@ -25,7 +25,9 @@ import functools
 import numpy as np
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, as_planes, build, check_vector
+from tpu_inspect_torch.kernels import Kernel, as_planes, build, check_vector
+
+_MORPH = Kernel("morph")
 
 
 def ellipse_se(k: int) -> np.ndarray:
@@ -281,6 +283,7 @@ def morph_chain_plain(x: torch.Tensor, stages, thr=None, roi=None) -> torch.Tens
     return apply_stages(_head(x, thr, roi).to(torch.uint8) * 255, tuple(stages)) > 0
 
 
+@_MORPH
 def morph_chain(x: torch.Tensor, stages, thr=None, roi=None) -> torch.Tensor:
     """A stage chain on [U, H, W] masks, its head fused; kernel I.
 
@@ -322,7 +325,7 @@ def morph_chain(x: torch.Tensor, stages, thr=None, roi=None) -> torch.Tensor:
         th, tww, ry, rx, int(big), torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("morph_chain", err)
-    LAUNCHES["morph"] += 1
+    _MORPH.launched()
     return out.view(torch.bool)
 
 

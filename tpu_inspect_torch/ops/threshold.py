@@ -20,8 +20,14 @@ import functools
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes
-from tpu_inspect_torch.ops.gaussian import _adaptive_launch, adaptive_gaussian_mean_plain
+from tpu_inspect_torch.kernels import Kernel, build, check_planes
+from tpu_inspect_torch.ops.gaussian import (
+    ADAPTIVE,
+    _adaptive_launch,
+    adaptive_gaussian_mean_plain,
+)
+
+_OTSU = Kernel("otsu")
 
 _FLT_EPSILON = 1.1920928955078125e-07  # FLT_EPSILON, as used by OpenCV
 
@@ -132,7 +138,7 @@ def _hist_launch(x: torch.Tensor, hist=None):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("histogram_u8", code)
-    LAUNCHES["otsu"] += 1
+    _OTSU.launched()
     return partials, per
 
 
@@ -146,10 +152,11 @@ def _scan_launch(u: int, n: int, device, hist=None, partials=None, parts: int = 
         1.0 / float(n), torch.cuda.current_stream(device).cuda_stream,
     )
     build.check("otsu_threshold_from_hist", code)
-    LAUNCHES["otsu"] += 1
+    _OTSU.launched()
     return thr
 
 
+@_OTSU
 def histogram_u8(x: torch.Tensor) -> torch.Tensor:
     """Per-unit 256-bin histogram. x: [U, H, W] uint8 -> [U, 256] int64
     (one launch of the histogram kernel for a CUDA tensor)."""
@@ -161,6 +168,7 @@ def histogram_u8(x: torch.Tensor) -> torch.Tensor:
     return hist
 
 
+@_OTSU
 def otsu_threshold_from_hist(hist: torch.Tensor, n: int) -> torch.Tensor:
     """getThreshVal_Otsu_8u from [U, 256] int64 counts summing to ``n``.
 
@@ -180,6 +188,7 @@ def otsu_threshold_from_hist(hist: torch.Tensor, n: int) -> torch.Tensor:
     return _scan_launch(hist.shape[0], n, hist.device, hist=hist)
 
 
+@_OTSU
 def otsu_threshold(x: torch.Tensor) -> torch.Tensor:
     """Per-unit Otsu threshold. x: [U, H, W] uint8 -> [U] int32 on x's
     device: two launches of ``csrc/otsu.cu`` for a CUDA tensor (the
@@ -224,6 +233,7 @@ def adaptive_threshold_inv_plain(x: torch.Tensor, block_size: int, C: int) -> to
     return torch.where(diff <= -int(C), 255, 0).to(torch.uint8)
 
 
+@ADAPTIVE
 def adaptive_threshold_inv(x: torch.Tensor, block_size: int, C: int) -> torch.Tensor:
     """cv2.adaptiveThreshold(GAUSSIAN_C, BINARY_INV): 255 where
     ``x - mean <= -C`` in int32, with the uint8 Gaussian local mean

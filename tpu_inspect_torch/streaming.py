@@ -7,10 +7,14 @@ copy and its program (:func:`tpu_inspect_torch.engine._inspect_image_device`)
 is dispatched while earlier frames are still computing: up to ``prefetch``
 frames are in flight before the oldest one's results are fetched.
 
-The dispatch-ahead overlaps a frame's upload and head with the previous
-frame's tail only up to the Otsu scan, which copies each frame's histogram
-to the host (``ops/threshold.py``) and so waits for the frames queued
-before it on the stream.
+The program waits for the card nowhere: the Otsu threshold stays on the
+device (``ops/threshold.py``), and the frame's bound flag is read with its
+answers. So a frame's upload and dispatch overlap the card's work on the
+frames before it; the host waits only where it refills an upload slot
+(span ``stream.slot_wait``) and where it fetches the oldest frame's answers
+(``stream.fetch``). Spans (:mod:`tpu_inspect_torch.utils.trace`, off by
+default): ``stream.upload`` a frame, ``stream.slot_wait`` inside it, the
+frame's program as its ``frame.*`` root, and ``stream.fetch``.
 
 Verdicts, areas and found flags (a few hundred bytes) are fetched per
 frame; masks stay on the device unless ``fetch_masks`` asks for them
@@ -35,6 +39,7 @@ from tpu_inspect_torch.device import resolve_device
 from tpu_inspect_torch.engine import _inspect_image_device, ref_centroid_arrays
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.kernels import build, error_flag
+from tpu_inspect_torch.utils.trace import span
 
 
 @dataclass
@@ -53,7 +58,9 @@ class _Uploader:
 
     A buffer is refilled only after the event recorded behind its last copy
     has completed: refilling it earlier would overwrite a frame the copy
-    engine may still be reading. On the CPU a frame is wrapped as it is.
+    engine may still be reading. On the CPU a frame is copied as it is.
+    Each frame is a span ``stream.upload``, its wait for the slot's event a
+    span ``stream.slot_wait`` inside it.
     """
 
     def __init__(self, dev: torch.device, slots: int):
@@ -64,19 +71,21 @@ class _Uploader:
         self.n = 0
 
     def __call__(self, image: np.ndarray) -> torch.Tensor:
-        if self.dev.type != "cuda":
-            return torch.from_numpy(image.copy())
-        s = self.n % self.slots
-        self.n += 1
-        if self.events[s] is not None:
-            self.events[s].synchronize()
-        if self.bufs[s] is None or tuple(self.bufs[s].shape) != image.shape:
-            self.bufs[s] = torch.empty(image.shape, dtype=torch.uint8, pin_memory=True)
-        np.copyto(self.bufs[s].numpy(), image)
-        out = self.bufs[s].to(self.dev, non_blocking=True)
-        self.events[s] = torch.cuda.Event()
-        self.events[s].record(torch.cuda.current_stream(self.dev))
-        return out
+        with span("stream.upload"):
+            s = self.n % self.slots
+            self.n += 1
+            with span("stream.slot_wait"):
+                if self.events[s] is not None:
+                    self.events[s].synchronize()
+            if self.dev.type != "cuda":
+                return torch.from_numpy(image.copy())
+            if self.bufs[s] is None or tuple(self.bufs[s].shape) != image.shape:
+                self.bufs[s] = torch.empty(image.shape, dtype=torch.uint8, pin_memory=True)
+            np.copyto(self.bufs[s].numpy(), image)
+            out = self.bufs[s].to(self.dev, non_blocking=True)
+            self.events[s] = torch.cuda.Event()
+            self.events[s].record(torch.cuda.current_stream(self.dev))
+            return out
 
 
 def stream_inspect(
@@ -118,20 +127,21 @@ def stream_inspect(
         return (err, verdict, area, found) + ((masks, dmasks) if fetch_masks else ())
 
     def collect(i, out):
-        build.check_bounded(f"stream_inspect frame {i}", out[0])
-        out = out[1:]
-        verdict, area, found = (t.cpu().numpy() for t in out[:3])
-        res = StreamResult(
-            index=i,
-            verdicts=verdict,
-            areas=area.astype(np.int64),
-            valid=found,
-            ng_count=int(verdict.sum()),
-        )
-        if fetch_masks:
-            res.seg_masks = out[3].cpu().numpy()
-            res.defect_masks = out[4].cpu().numpy()
-        return res
+        with span("stream.fetch"):
+            build.check_bounded(f"stream_inspect frame {i}", out[0])
+            out = out[1:]
+            verdict, area, found = (t.cpu().numpy() for t in out[:3])
+            res = StreamResult(
+                index=i,
+                verdicts=verdict,
+                areas=area.astype(np.int64),
+                valid=found,
+                ng_count=int(verdict.sum()),
+            )
+            if fetch_masks:
+                res.seg_masks = out[3].cpu().numpy()
+                res.defect_masks = out[4].cpu().numpy()
+            return res
 
     inflight: deque[tuple[int, tuple]] = deque()
     shape0 = None

@@ -35,8 +35,10 @@ import sys
 
 import torch
 
-from tpu_inspect_torch.kernels import LAUNCHES, build, check_planes, check_vector
+from tpu_inspect_torch.kernels import Kernel, build, check_planes, check_vector
 from tpu_inspect_torch.ops.median import _check_k, _row_bounds, median_residual_mask_plain
+
+_MEDIAN_PROBE = Kernel("median_probe")
 
 # in the order of csrc/median_hist.cuh's Mode, which the kernel takes as its index
 MODES = ("baseline", "nowarm", "noupdate", "noatomic", "noquery")
@@ -45,6 +47,7 @@ MODES = ("baseline", "nowarm", "noupdate", "noatomic", "noquery")
 STRIPS = (8, 16, 32, 64)
 
 
+@_MEDIAN_PROBE
 def probe(x, k: int, thr: int, row_lo=None, row_hi=None, mode: str = "baseline",
           strip: int = 32):
     """Kernel L: kernel B's median residual of x [U, H, W] uint8 in ablation
@@ -77,7 +80,7 @@ def probe(x, k: int, thr: int, row_lo=None, row_hi=None, mode: str = "baseline",
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("median_probe", err)
-    LAUNCHES["median_probe"] += 1
+    _MEDIAN_PROBE.launched()
     return out
 
 

@@ -6,8 +6,8 @@ The reference's only observability is a 1000-line text pane with per-unit
 messages like ``Unit {row}: defect area={area} px -> {NG|OK}``
 (indexing_ui.py:1619, :977-983) and status-bar summaries (:1626, :1708).
 InspectionLog reproduces those message formats headlessly; stage_timer adds
-what the reference never had — wall-clock timing around device stages
-(torch.profiler does the per-op work, see PERF.md).
+what the reference never had — wall-clock timing around stages, each also a
+span of :mod:`tpu_inspect_torch.utils.trace` (the port's one timing system).
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from __future__ import annotations
 import time
 from collections import deque
 from contextlib import contextmanager
+
+from tpu_inspect_torch.utils import trace
 
 
 class InspectionLog:
@@ -45,10 +47,13 @@ class InspectionLog:
 
 @contextmanager
 def stage_timer(name: str, sink=None):
-    """Wall-clock timing context; appends ``name: X.X ms`` to sink/log."""
+    """Wall-clock timing context, opened as span ``name`` of
+    :mod:`tpu_inspect_torch.utils.trace`; appends ``name: X.X ms`` to
+    sink/log."""
     t0 = time.perf_counter()
     try:
-        yield
+        with trace.span(name):
+            yield
     finally:
         ms = (time.perf_counter() - t0) * 1000.0
         msg = f"{name}: {ms:.1f} ms"
