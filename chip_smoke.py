@@ -65,8 +65,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``tests/test_torch_cuda.py``, ``tests/test_torch_uf.py``,
    ``tests/test_torch_median_hist.py``: word-edge widths, tile seams and
    corners, staircases, spirals, serpentines, solid planes, real Canny
-   edges, the sliding-histogram walk's strips and edges) in one pytest
-   subprocess, which runs beside phase 4 and is read before phase 4b;
+   edges, the sliding-histogram walk's strips and edges), and the captured
+   replay of the one-capture program against its eager run
+   (``tests/test_torch_graph.py``) in one pytest subprocess, which runs
+   beside phase 4 and is read before phase 4b;
 4. every path on the card, each driven with the launch counts set to 0 just
    before it and read just after, and held field by field against the same
    engine on ``device="cpu"``: ``engine.inspect_image`` for the four
@@ -90,10 +92,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with the selected unit's outline), each held against phase 4's CPU
    results for the same image and parameters; the chained path
    (``engine._ENABLE_CHAIN``: kernel K in place of A's two launches) on the
-   reference capture against the split path and the CPU run; the capture
-   stream (``streaming.stream_inspect``) over six 4096x3000 frames with the
-   reference's anchors and again without anchors on the chained path, every
-   frame held against ``inspect_image`` on the card; ``stream_inspect_paths``
+   reference capture against the split path and the CPU run; the six
+   4096x3000 stream frames through ``inspect_image`` with the reference's
+   anchors and without, each frame an eager one (the captured graphs
+   dropped before each call), the references of what follows; the captured
+   replay (:mod:`tpu_inspect_torch.graphs`) of the anchored split program:
+   the six frames anchored through ``inspect_image``, two eager, one
+   capture, three replays, each frame's launches equal and its outputs
+   held field by field against its eager run, the (7, -4) capture's also
+   against the CPU run, and ``GRAPHS`` read; the capture stream
+   (``streaming.stream_inspect``) over the six frames with the reference's
+   anchors and again without anchors on the chained path, the graphs
+   dropped before each (two eager frames, a capture, three replays, read
+   from ``GRAPHS``), every frame held against its eager run on the card;
+   ``stream_inspect_paths``
    over PNG files and the CLI as subprocesses (gridgen, inspect, stream,
    doctor, profile), where the host can decode files (the port's
    libpng/libtiff loader, or cv2); the median-probe tool (kernel L's sweep of
@@ -222,6 +234,11 @@ STREAM_FRAMES = ((0, (0, 0)), (1, (7, -4)), (2, (3, 5)), (3, (-6, 2)), (4, (0, -
                  (5, (5, 1)))
 STREAM_HOME = "stream anchored"
 STREAM_CHAIN_HOME = "stream chained, no anchors"
+# the captured replay (tpu_inspect_torch.graphs) of cell 4's program: the
+# stream's frames in this order, anchored, through inspect_image; the
+# first two run eagerly, the third captures, the rest replay
+REPLAY_HOME = "otsu/threshold anchored replay"
+REPLAY_ORDER = (2, 3, 4, 5, 1, 0)
 STREAM_REPEATS = 3  # the timed stream: the frames this many times over
 # kernel L's path: the median-probe tool's sweep
 PROBE_HOME = "median probe tool"
@@ -710,10 +727,17 @@ def main() -> int:
 
     import numpy as np
 
-    from tpu_inspect_torch import engine, geometry, native, render
+    from tpu_inspect_torch import engine, geometry, graphs, native, render
     from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
     from tpu_inspect_torch.imageio import crops_for_grid, gather_crops
-    from tpu_inspect_torch.kernels import LAUNCHES, build, error_flag, reset_launches
+    from tpu_inspect_torch.kernels import (
+        GRAPHS,
+        LAUNCHES,
+        build,
+        error_flag,
+        reset_graphs,
+        reset_launches,
+    )
     from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_plain, candidate_mask
     from tpu_inspect_torch.ops.blob_select import blob_select, blob_select_plain
     from tpu_inspect_torch.ops.canny import canny_planes, canny_planes_plain, canny_u8
@@ -1375,10 +1399,12 @@ def main() -> int:
     # process exits first.
     mark("phase 3: the cuda-marked tests start, beside phase 4")
     tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
-             "tests/test_torch_median_hist.py", "tests/test_torch_cluster.py"]
+             "tests/test_torch_median_hist.py", "tests/test_torch_cluster.py",
+             "tests/test_torch_graph.py"]
     selected = ("otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist "
                 "or mask_chain or cc_stats_ or test_torch_cluster or public_name or adaptive_mean "
-                "or gauss_blur_kernel or adaptive_kernel or head_kernels or canny_head_kernel")
+                "or gauss_blur_kernel or adaptive_kernel or head_kernels or canny_head_kernel "
+                "or test_torch_graph")
     test_log = tempfile.TemporaryFile(mode="w+")
     test_proc = subprocess.Popen(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,
@@ -1537,7 +1563,7 @@ def main() -> int:
             for field in dataclasses.fields(g):
                 a, b = getattr(g, field.name), getattr(r, field.name)
                 if a.dtype != b.dtype or not np.array_equal(a, b):
-                    fail(f"{path}: {field.name} differs from the CPU run")
+                    fail(f"{path}: {field.name} differs")
 
     seg_kernels = ("gauss_blur", "otsu", "propagate", "label", "cc_stats")
     def_kernels = {"threshold": seg_kernels + ("median_residual", "blob_select"),
@@ -1829,12 +1855,48 @@ def main() -> int:
     frames = [work["image"], shifted_img] + [
         make_mold_image(grid, (3000, 4096), seed=sd, shift=sh) for sd, sh in STREAM_FRAMES[2:]]
     anchors = cpu_ref[0].centroid_dict()
-    frame_refs = {
-        anchored: [engine.inspect_image(
+
+    def eager_frame(f, anchored):
+        """inspect_image on the card as an eager frame: the graphs dropped,
+        so the call is its key's first sighting."""
+        graphs.FRAMES.clear()
+        return engine.inspect_image(
             f, grid, seg, dparams, exclusions=excl, ref_centroids=anchors if anchored else None,
-            is_reference=not anchored, device="cuda") for f in frames]
-        for anchored in (True, False)
-    }
+            is_reference=not anchored, device="cuda")
+
+    reset_graphs()
+    frame_refs = {anchored: [eager_frame(f, anchored) for f in frames]
+                  for anchored in (True, False)}
+    if GRAPHS != {"captured": 0, "replayed": 0, "eager": 2 * len(frames), "refused": 0}:
+        fail(f"the stream frames' references: not all eager, GRAPHS {GRAPHS}")
+
+    # the captured replay of the anchored split program (cell 4's): every
+    # frame's launches counted alone and equal, every frame held against
+    # its eager run, the (7, -4) capture's also against the CPU run
+    graphs.FRAMES.clear()
+    reset_graphs()
+    replayed, replay_launches = {}, []
+    for i in REPLAY_ORDER:
+        reset_launches()
+        replayed[i] = engine.inspect_image(frames[i], grid, seg, dparams, exclusions=excl,
+                                           ref_centroids=anchors, is_reference=False,
+                                           device="cuda")
+        replay_launches.append(dict(LAUNCHES))
+    launches_by_path[REPLAY_HOME] = replay_launches[-1]
+    n_rep = len(REPLAY_ORDER)
+    if GRAPHS != {"captured": 1, "replayed": n_rep - 2, "eager": 2, "refused": 0}:
+        fail(f"{REPLAY_HOME}: GRAPHS {GRAPHS}, expected 2 eager frames, one capture and "
+             f"{n_rep - 2} replays (last refusal: {graphs.FRAMES.last_refusal})")
+    if any(c != replay_launches[0] for c in replay_launches) or replay_launches[0]["seg_tail"] != 2:
+        fail(f"{REPLAY_HOME}: launches differ between eager, captured and replayed frames: "
+             f"{replay_launches}")
+    for i, out in replayed.items():
+        held(f"{REPLAY_HOME} frame {i} vs its eager run", out, frame_refs[True][i])
+    held(f"{REPLAY_HOME} (7, -4) capture vs device=cpu", replayed[1],
+         cpu_runs["otsu/threshold shifted"])
+    say(f"phase 4: {REPLAY_HOME}: frames {list(REPLAY_ORDER)} 3000x4096 anchored, GRAPHS "
+        f"{dict(GRAPHS)}, each frame equal to its eager run on the card and the (7, -4) "
+        f"capture to device=cpu, launches a frame {replay_launches[0]}")
 
     def held_stream(path, results, refs):
         """Fail unless each streamed frame equals inspect_image's results on
@@ -1854,6 +1916,8 @@ def main() -> int:
     n_fr = len(frames)
     for path, anchored, prefetch in ((STREAM_HOME, True, 1), (STREAM_CHAIN_HOME, False, 2)):
         engine._ENABLE_CHAIN = not anchored
+        graphs.FRAMES.clear()
+        reset_graphs()
         reset_launches()
         res = list(stream_inspect(frames, grid, seg, dparams, exclusions=excl,
                                   ref_centroids=anchors if anchored else None,
@@ -1861,6 +1925,9 @@ def main() -> int:
         launches = dict(LAUNCHES)
         engine._ENABLE_CHAIN = False
         launches_by_path[path] = launches
+        if GRAPHS != {"captured": 1, "replayed": len(frames) - 2, "eager": 2, "refused": 0}:
+            fail(f"{path}: GRAPHS {GRAPHS}, expected 2 eager frames, one capture and "
+                 f"{len(frames) - 2} replays (last refusal: {graphs.FRAMES.last_refusal})")
         tails = {"seg_tail": 2 * n_fr, "seg_roi_tail": 0} if anchored else {
             "seg_tail": 0, "seg_roi_tail": n_fr}
         if any(launches[n] != c for n, c in {**tails, "median_residual": n_fr,
@@ -1869,8 +1936,8 @@ def main() -> int:
             fail(f"{path}: launches {launches} for {n_fr} frames")
         held_stream(path, res, frame_refs[anchored])
         say(f"phase 4: {path}: {n_fr} frames 3000x4096 at prefetch {prefetch}, each equal to "
-            f"inspect_image on the card (masks included): NG {[r.ng_count for r in res]}, "
-            f"launches {launches}")
+            f"its eager run on the card (masks included): NG {[r.ng_count for r in res]}, "
+            f"GRAPHS {dict(GRAPHS)}, launches {launches}")
 
     # files: stream_inspect_paths and the CLI read PNGs through the port's
     # native libpng/libtiff loader, or through cv2 where the host has no

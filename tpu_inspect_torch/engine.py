@@ -42,6 +42,9 @@ the seg tail, the exclusion zone and the ROI tail run chained in ONE launch
 of kernel K (:func:`_segment_roi`, ``csrc/seg_roi_tail.cu``) in place of
 kernel A's two; the defect pass then starts from K's ROI
 (:func:`_defect_from_roi`). With the flag unset the split path above runs.
+On the card, repeated calls of the chained or split program with the same
+grid, recipe, exclusions and anchors replay one captured CUDA graph
+(:mod:`tpu_inspect_torch.graphs`, keyed by :func:`_frame_key`).
 
 :func:`defect_intermediates` is the per-unit diagnostic pass; its contour
 analysis runs kernel D (exterior flood) and kernel E (labeling, twice), and
@@ -66,7 +69,8 @@ from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParam
 from tpu_inspect_torch.device import resolve_device
 from tpu_inspect_torch.geometry import grid_origins
 from tpu_inspect_torch.imageio import gather_crops
-from tpu_inspect_torch.kernels import build, error_flag
+from tpu_inspect_torch.graphs import FRAMES
+from tpu_inspect_torch.kernels import build, device_constant, error_flag
 from tpu_inspect_torch.ops.blob import blob_filter, blob_filter_fits, candidate_mask
 from tpu_inspect_torch.ops.blob_select import blob_select
 from tpu_inspect_torch.ops.canny import canny_u8
@@ -198,6 +202,44 @@ def ref_centroid_arrays(ref_centroids, u: int) -> tuple[np.ndarray, np.ndarray]:
     )
 
 
+def anchor_key(ref_centroids):
+    """The alignment anchors as a hashable value equal for equal anchors:
+    None, ``("dict", frozenset of the items)`` for the persistence dict
+    form, ``("array", shape, float64 bytes)`` for a dense array."""
+    if ref_centroids is None:
+        return None
+    if isinstance(ref_centroids, dict):
+        try:
+            return "dict", frozenset(ref_centroids.items())
+        except TypeError:  # unhashable values (lists, arrays)
+            return "dict", frozenset((k, tuple(v)) for k, v in ref_centroids.items())
+    a = np.ascontiguousarray(ref_centroids, dtype=np.float64)
+    return "array", a.shape, a.tobytes()
+
+
+@device_constant(maxsize=8)
+def _anchor_tensors(key, u: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ref_centroid_arrays` of the anchors :func:`anchor_key` gave
+    ``key``, on ``device``: uploaded once per anchor set."""
+    if key is None:
+        anchors = None
+    elif key[0] == "dict":
+        anchors = dict(key[1])
+    else:
+        anchors = np.frombuffer(key[2], dtype=np.float64).reshape(key[1]).copy()
+    ref_arr, ref_ok = ref_centroid_arrays(anchors, u)
+    dev = torch.device(device)
+    return _upload(ref_arr, dev), _upload(ref_ok, dev)
+
+
+@device_constant(maxsize=8)
+def origins_on(grid: GridParams, device: str) -> torch.Tensor:
+    """The grid's unit origins [U, 2] on ``device``, uploaded once per grid:
+    the same tensor for every call, so calls on one grid share a frame
+    key (:func:`_frame_key`)."""
+    return torch.from_numpy(grid_origins(grid)).to(device)
+
+
 def exclusion_zone(shape, rects: np.ndarray, circles: np.ndarray,
                    dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Rasterize per-unit shifted exclusions. Returns [U, H, W] bool on
@@ -324,7 +366,6 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference, err=None):
     mask, st = _seg_mask(crops, seg, err)
     with span("seg.align"):
         rects, circles = pack_exclusions(exclusions)
-        ref_arr, ref_ok = ref_centroid_arrays(ref_centroids, u)
         area, sx, sy = st[:, 0], st[:, 1], st[:, 2]
         has_fg = st[:, 3] > 0
 
@@ -338,8 +379,8 @@ def _segment(crops, seg, exclusions, ref_centroids, is_reference, err=None):
             centroid = torch.stack(
                 [sx.to(torch.float64) / cnt, sy.to(torch.float64) / cnt], dim=-1
             )
-            ref = _upload(ref_arr, dev)
-            ok = _upload(ref_ok, dev) & has_fg
+            ref, ok = _anchor_tensors(anchor_key(ref_centroids), u, str(dev))
+            ok = ok & has_fg
             delta = torch.round(centroid - ref).to(torch.int32)
             dx = torch.where(ok, delta[:, 0], 0).to(torch.int32)
             dy = torch.where(ok, delta[:, 1], 0).to(torch.int32)
@@ -472,6 +513,51 @@ def _segment_roi(crops, seg: SegmentationParams, exclusions, erode_px: int, err=
         return (mask, sums, st[:, 3] > 0, shifts), (roi, roi_st)
 
 
+def _frame_key(image, origins, unit_hw, seg: SegmentationParams, defect: DefectParams,
+               exclusions, ref_centroids, is_reference: bool, with_defects: bool,
+               route: str):
+    """Everything one capture's program bakes in, as a hashable key: the
+    image's shape, dtype and device, the current stream, ``origins`` (by
+    identity and its count of in-place writes), ``unit_hw``, the validated
+    parameters, the packed exclusions, the anchors' values (off the
+    reference), ``is_reference``, ``with_defects``, the route and the chain
+    flag. None where the program cannot be keyed: ``origins`` not on the
+    image's device, or a tensor that counts no writes (an inference
+    tensor)."""
+    dev = image.device
+    if origins.device != dev:
+        return None
+    try:
+        version = origins._version
+    except RuntimeError:
+        return None
+    rects, circles = pack_exclusions(exclusions)
+    return (
+        tuple(image.shape), image.dtype, dev,
+        torch.cuda.current_stream(dev.index).cuda_stream if dev.type == "cuda" else None,
+        id(origins), version, tuple(unit_hw), seg, defect,
+        rects.tobytes(), circles.tobytes(),
+        None if is_reference else anchor_key(ref_centroids),
+        bool(is_reference), bool(with_defects), route, _ENABLE_CHAIN,
+    )
+
+
+def _program(image, origins, unit_hw, seg, defect, exclusions, ref_centroids,
+             is_reference, with_defects, chained, err):
+    """The body of :func:`_inspect_image_device`, on one route."""
+    with span("gather"):
+        crops = gather_crops(image, origins, unit_hw)
+    if chained:
+        seg_out, (roi, roi_st) = _segment_roi(
+            crops, seg, exclusions, int(defect.erode_px), err
+        )
+        return seg_out + (_defect_from_roi(crops, roi, roi_st, defect, err),)
+    seg_out = _segment(crops, seg, exclusions, ref_centroids, is_reference, err)
+    if not with_defects:
+        return seg_out + (None,)
+    return seg_out + (_defect(crops, seg_out[0], defect, err),)
+
+
 def _inspect_image_device(image, origins, unit_hw, seg: SegmentationParams,
                           defect: DefectParams, exclusions=(), ref_centroids=None,
                           is_reference: bool = True, with_defects: bool = True,
@@ -487,25 +573,35 @@ def _inspect_image_device(image, origins, unit_hw, seg: SegmentationParams,
     instead of being read one by one, and the caller reads it where it
     copies the results out: the program then waits for the card nowhere.
 
+    On the card, a call with ``err`` on the chained or split route is a
+    frame of :data:`tpu_inspect_torch.graphs.FRAMES` under
+    :func:`_frame_key`: the first two calls of a key run eagerly, the third
+    captures the program into a CUDA graph, and every later one replays it
+    (one copy of the image in, one launch, the flag merged into ``err``).
+    The outputs are the same bits either way, and fresh tensors: the
+    caller's own, which a later call never writes. The whole-image route,
+    CPU tensors and calls without ``err`` run eagerly.
+
     Each call is the root span of one frame
     (:mod:`tpu_inspect_torch.utils.trace`), named by its route:
-    ``frame.chained``, ``frame.whole`` or ``frame.split``."""
+    ``frame.chained``, ``frame.whole`` or ``frame.split``; a replay opens
+    ``graph.replay`` inside it, a capture ``graph.capture``."""
     shape = (len(origins), *unit_hw)
     chained = with_defects and is_reference and _seg_roi_chain_fits(shape, seg)
     route = "frame.chained" if chained else "frame.whole" if _whole_route(*unit_hw) else (
         "frame.split")
+
+    def program(img, flag):
+        return _program(img, origins, unit_hw, seg, defect, exclusions, ref_centroids,
+                        is_reference, with_defects, chained, flag)
+
     with span(route):
-        with span("gather"):
-            crops = gather_crops(image, origins, unit_hw)
-        if chained:
-            seg_out, (roi, roi_st) = _segment_roi(
-                crops, seg, exclusions, int(defect.erode_px), err
-            )
-            return seg_out + (_defect_from_roi(crops, roi, roi_st, defect, err),)
-        seg_out = _segment(crops, seg, exclusions, ref_centroids, is_reference, err)
-        if not with_defects:
-            return seg_out + (None,)
-        return seg_out + (_defect(crops, seg_out[0], defect, err),)
+        if image.device.type != "cuda":
+            return program(image, err)
+        key = None if err is None or route == "frame.whole" else _frame_key(
+            image, origins, unit_hw, seg, defect, exclusions, ref_centroids, is_reference,
+            with_defects, route)
+        return FRAMES.run(key, image, err, program, keep=(origins,))
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -682,7 +778,7 @@ def inspect_image(image, grid: GridParams, seg: SegmentationParams,
     Returns (SegmentationResult, InspectionResult or None when ``defect``
     is None)."""
     dev = resolve_device(device)
-    origins = torch.from_numpy(grid_origins(grid)).to(dev)
+    origins = origins_on(grid, str(dev))
     _, _, w, h = grid.base_unit
     err = error_flag(dev)
     out = _inspect_image_device(

@@ -6,12 +6,29 @@ nowhere else), so a run can show that the main path went through the
 kernels. Reset it with :func:`reset_launches`. The helper that counts a
 launch, :class:`Kernel`, is the one that opens the wrapper's span
 (``kernel.<name>`` of :mod:`tpu_inspect_torch.utils.trace`): one record of
-the kernels, counts and host time alike.
+the kernels, counts and host time alike. A frame replayed from a captured
+graph (:mod:`tpu_inspect_torch.graphs`) counts the launches its capture
+recorded, so it counts as an eager frame does; the launches made while a
+thread warms up or captures a graph go to that capture's record
+(:func:`recording`), never to ``LAUNCHES``, so frames that other threads
+run meanwhile count as they would alone.
+
+``GRAPHS`` counts what the frames of the one-capture program did on the
+card: ``captured`` graphs, ``replayed`` and ``eager`` frames, and captures
+``refused`` (whose key runs eagerly from then on). Reset it with
+:func:`reset_graphs`.
+
+:func:`device_constant` caches a small tensor a kernel or the program reads
+on every call (a stage program, taps, index tables, the anchors); while a
+thread captures a graph it also hands each value to the graph's keep list
+(:func:`recording`), so the cache's eviction cannot free what a graph reads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import torch
 
@@ -25,9 +42,58 @@ LAUNCHES: dict[str, int] = {
 }
 
 
+GRAPHS: dict[str, int] = {"captured": 0, "replayed": 0, "eager": 0, "refused": 0}
+
+_LOCAL = threading.local()  # .record: this thread's capture record (keep, launches), or None
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def reset_graphs() -> None:
+    for name in GRAPHS:
+        GRAPHS[name] = 0
+
+
+def device_constant(maxsize: int | None):
+    """``functools.lru_cache(maxsize)`` for a function that returns a device
+    constant (a tensor, or a tuple of them, never written in place). Inside
+    :func:`recording` every value it returns on that thread is also
+    appended to the keep list. The wrapper keeps ``cache_clear`` and
+    ``cache_info``."""
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def get(*args, **kwargs):
+            out = cached(*args, **kwargs)
+            record = getattr(_LOCAL, "record", None)
+            if record is not None:
+                record[0].append(out)
+            return out
+
+        get.cache_clear, get.cache_info = cached.cache_clear, cached.cache_info
+        return get
+
+    return wrap
+
+
+@contextlib.contextmanager
+def recording(keep: list, launches: dict[str, int]):
+    """On this thread, inside the block: append every :func:`device_constant`
+    value returned to ``keep``, and count each kernel launch in
+    ``launches`` in place of ``LAUNCHES`` (a graph's warm-up and capture:
+    the graph then holds what it reads, and its replays count what it
+    launched). Other threads count as before."""
+    outer = getattr(_LOCAL, "record", None)
+    _LOCAL.record = (keep, launches)
+    try:
+        yield
+    finally:
+        _LOCAL.record = outer
 
 
 class Kernel:
@@ -55,7 +121,11 @@ class Kernel:
         return spanned
 
     def launched(self) -> None:
-        LAUNCHES[self.name] += 1
+        record = getattr(_LOCAL, "record", None)
+        if record is None:
+            LAUNCHES[self.name] += 1
+        else:
+            record[1][self.name] = record[1].get(self.name, 0) + 1
 
 
 def error_flag(device) -> torch.Tensor:

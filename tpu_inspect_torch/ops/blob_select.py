@@ -27,6 +27,7 @@ from tpu_inspect_torch.kernels import (
     build,
     check_labels,
     check_vector,
+    device_constant,
     error_flag,
 )
 from tpu_inspect_torch.ops._contour_table import CONTOUR_TABLE_X2
@@ -35,7 +36,7 @@ from tpu_inspect_torch.ops.contour import contour_sums_x2
 _BLOB_SELECT = Kernel("blob_select")
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant(maxsize=8)
 def contour_table(device: str) -> torch.Tensor:
     """``CONTOUR_TABLE_X2`` as a contiguous [81, 3] int32 tensor on
     ``device`` (kept per device: kernel C reads it on every call)."""

@@ -18,12 +18,10 @@ for CPU tensors. The taps and index tables go to the card once per
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from tpu_inspect_torch.kernels import Kernel, build, check_planes
+from tpu_inspect_torch.kernels import Kernel, build, check_planes, device_constant
 
 _GAUSS_BLUR = Kernel("gauss_blur")
 ADAPTIVE = Kernel("adaptive")
@@ -54,7 +52,7 @@ def fixed_gaussian_kernel(k: int, sigma: float = 0.0) -> np.ndarray:
     return np.diff(np.concatenate([[0.0], np.rint(cum)])).astype(np.int64)
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant(maxsize=32)
 def _reflect101_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
     """int32 indices of a BORDER_REFLECT_101 padded axis (numpy's 'reflect',
     which reflects again where ``pad > n - 1``), kept per device, so a call
@@ -64,7 +62,7 @@ def _reflect101_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(idx, dtype=torch.int32, device=device)
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant(maxsize=32)
 def _blur_taps(k: int, sigma: float, device: torch.device) -> torch.Tensor:
     """Kernel M's int32 taps, :func:`fixed_gaussian_kernel` ``(k, sigma)``,
     uploaded once per device."""
@@ -144,7 +142,7 @@ def _mean_kernel(k: int) -> np.ndarray:
     return _TAB_9 if k == 9 else gaussian_kernel_f64(k).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant(maxsize=32)
 def _mean_taps(k: int, device: torch.device) -> torch.Tensor:
     """Kernel N's float32 taps, :func:`_mean_kernel` ``(k)``, uploaded once per
     device."""

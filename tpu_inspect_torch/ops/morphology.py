@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from tpu_inspect_torch.kernels import Kernel, as_planes, build, check_vector
+from tpu_inspect_torch.kernels import Kernel, as_planes, build, check_vector, device_constant
 
 _MORPH = Kernel("morph")
 
@@ -143,7 +143,7 @@ def stage_program(stages) -> list[int]:
     return prog
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def stage_program_tensor(stages, device: str) -> torch.Tensor:
     """:func:`stage_program` as an int32 tensor on ``device`` (cached per
     stage chain, so a launch does not copy it again)."""

@@ -12,7 +12,11 @@ device (``ops/threshold.py``), and the frame's bound flag is read with its
 answers. So a frame's upload and dispatch overlap the card's work on the
 frames before it; the host waits only where it refills an upload slot
 (span ``stream.slot_wait``) and where it fetches the oldest frame's answers
-(``stream.fetch``). Spans (:mod:`tpu_inspect_torch.utils.trace`, off by
+(``stream.fetch``). A stream's frames share one grid, recipe and anchor
+set, so from its third frame on the card the program is a replay of one
+captured CUDA graph (:mod:`tpu_inspect_torch.graphs`): the dispatch is a
+copy of the uploaded capture, one launch and the answers' copies, and
+``stream.fetch`` then holds most of the host's wait for the card. Spans (:mod:`tpu_inspect_torch.utils.trace`, off by
 default): ``stream.upload`` a frame, ``stream.slot_wait`` inside it, the
 frame's program as its ``frame.*`` root, and ``stream.fetch``.
 
@@ -36,8 +40,7 @@ import torch
 
 from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
 from tpu_inspect_torch.device import resolve_device
-from tpu_inspect_torch.engine import _inspect_image_device, ref_centroid_arrays
-from tpu_inspect_torch.geometry import grid_origins
+from tpu_inspect_torch.engine import _inspect_image_device, origins_on, ref_centroid_arrays
 from tpu_inspect_torch.kernels import build, error_flag
 from tpu_inspect_torch.utils.trace import span
 
@@ -109,7 +112,7 @@ def stream_inspect(
     dev = resolve_device(device)
     seg = (seg or SegmentationParams()).validated()
     defect = (defect or DefectParams()).validated()
-    origins = torch.from_numpy(grid_origins(grid)).to(dev)
+    origins = origins_on(grid, str(dev))
     u = origins.shape[0]
     _, _, w, h = grid.base_unit
     unit_hw = (int(h), int(w))
