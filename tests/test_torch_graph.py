@@ -9,7 +9,8 @@ calls never reach the graphs.
 
 On the card (``cuda`` marker; they skip without a GPU): a replay equals the
 eager program bit for bit on the chained route, on the split route with
-anchors and shifted captures, and on the adaptive/Canny split route;
+anchors and shifted captures, on the adaptive/Canny split route and on the
+whole-image route (the capture as one unit);
 outputs of successive replays are never aliased; a replayed frame counts
 the launches of an eager one and opens only its root and ``graph.replay``
 spans; a replay waits for the card nowhere; the graph holds the device
@@ -464,6 +465,7 @@ _ROUTES = {
     "split adaptive canny": dict(chain=False, seg=SegmentationParams(method="adaptive",
                                                                      adapt_block=51, adapt_C=10),
                                  defect=DefectParams(method="canny"), anchored=True),
+    "whole otsu": dict(chain=False, seg=SegmentationParams(), anchored=False, whole=True),
 }
 
 
@@ -474,6 +476,8 @@ def _setup(dev, case, monkeypatch):
     spec = _ROUTES[case]
     monkeypatch.setattr(teng, "_ENABLE_CHAIN", spec["chain"])
     grid, images = _big()
+    if spec.get("whole"):  # each capture as one 4096x3000 unit
+        grid = GridParams(base_unit=(0, 0, 4096, 3000))
     seg = spec["seg"].validated()
     dp = spec.get("defect", DefectParams()).validated()
     origins = teng.origins_on(grid, str(dev))

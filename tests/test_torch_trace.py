@@ -25,8 +25,9 @@ IMAGE = make_mold_image(GRID, (150, 160), seed=3, defect_rate=0.6)
 
 SPLIT_STAGES = ["gather", "seg.head", "seg.tail", "seg.align", "defect.roi", "defect.cand",
                 "defect.filter"]
-# the route, what sets it, its stages in order, and the kernels each stage's
-# wrappers open (the plain versions on the CPU)
+# the route, what sets it, its stages in order, and the spans each stage
+# opens directly: its wrappers' kernel spans (the plain versions on the CPU),
+# on the whole-image route its ``whole.*`` spans
 ROUTES = {
     "chained": ("frame.chained", dict(chain=True),
                 ["gather", "seg.head", "seg.align", "seg.tail", "defect.cand", "defect.filter"],
@@ -48,10 +49,10 @@ ROUTES = {
     "whole": ("frame.whole", dict(whole=True),
               SPLIT_STAGES,
               {"seg.head": ["kernel.gauss_blur", "kernel.otsu"],
-               "seg.tail": ["kernel.morph", "kernel.propagate", "kernel.label",
-                            "kernel.cc_stats"],
-               "defect.roi": ["kernel.morph", "kernel.label", "kernel.cc_stats"],
-               "defect.cand": ["kernel.median_residual"]}),
+               "seg.tail": ["whole.mask", "whole.fill", "whole.label", "whole.stats"],
+               "defect.roi": ["whole.mask", "whole.label", "whole.stats"],
+               "defect.cand": ["kernel.median_residual"],
+               "defect.filter": ["whole.mask", "whole.regions", "whole.select"]}),
 }
 
 

@@ -42,8 +42,8 @@ the seg tail, the exclusion zone and the ROI tail run chained in ONE launch
 of kernel K (:func:`_segment_roi`, ``csrc/seg_roi_tail.cu``) in place of
 kernel A's two; the defect pass then starts from K's ROI
 (:func:`_defect_from_roi`). With the flag unset the split path above runs.
-On the card, repeated calls of the chained or split program with the same
-grid, recipe, exclusions and anchors replay one captured CUDA graph
+On the card, repeated calls of the program (any route) with the same grid,
+recipe, exclusions and anchors replay one captured CUDA graph
 (:mod:`tpu_inspect_torch.graphs`, keyed by :func:`_frame_key`).
 
 :func:`defect_intermediates` is the per-unit diagnostic pass; its contour
@@ -304,13 +304,20 @@ def _whole_tail(x, stages=(), fill=False, out_largest=False, thr=None, *, err=No
     (kernels D, E and F on whole planes), with int64 stats: the port of the
     JAX package's ``raw_segment`` + ``largest_component_sums`` and
     ``_defect_roi_fallback``. ``err``: the bound flag kernels D, E and F
-    set, read by the caller; without one each launch reads its own."""
-    m = tail_mask(x, stages, thr, chain=morph_chain)
+    set, read by the caller; without one each launch reads its own. Spans:
+    ``whole.mask`` (the compare and kernel I), ``whole.fill``, ``whole.label``,
+    ``whole.stats`` (kernel F and the output plane)."""
+    with span("whole.mask"):
+        m = tail_mask(x, stages, thr, chain=morph_chain)
     if fill:
-        m = m | ~exterior_background(m, err=err)
-    best, stats = component_stats(label_components(m, err=err), m, err=err)
-    out = best if out_largest else m
-    return out.to(torch.uint8) * 255, stats
+        with span("whole.fill"):
+            m = m | ~exterior_background(m, err=err)
+    with span("whole.label"):
+        labels = label_components(m, err=err)
+    with span("whole.stats"):
+        best, stats = component_stats(labels, m, err=err)
+        out = best if out_largest else m
+        return out.to(torch.uint8) * 255, stats
 
 
 def _whole_blobs(fg, max_x2, *, min_x2: int, roi=None, pre_open=False, err=None):
@@ -318,9 +325,15 @@ def _whole_blobs(fg, max_x2, *, min_x2: int, roi=None, pre_open=False, err=None)
     port of ``contour.filter_and_select`` at whole-image size): the fill
     regions (:func:`tpu_inspect_torch.ops.contour.fill_regions`), then
     kernel G for the Green's filter and the paint. ``err`` as for
-    :func:`_whole_tail`."""
-    m = candidate_mask(fg, roi, pre_open, chain=morph_chain)
-    return blob_select(*fill_regions(m, err), max_x2, min_x2=min_x2, err=err)
+    :func:`_whole_tail`. Spans: ``whole.mask`` (the ROI AND and kernel I's
+    open), ``whole.regions`` (kernels D, E, the seed plane, D),
+    ``whole.select`` (kernel G)."""
+    with span("whole.mask"):
+        m = candidate_mask(fg, roi, pre_open, chain=morph_chain)
+    with span("whole.regions"):
+        regions = fill_regions(m, err)
+    with span("whole.select"):
+        return blob_select(*regions, max_x2, min_x2=min_x2, err=err)
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -573,14 +586,14 @@ def _inspect_image_device(image, origins, unit_hw, seg: SegmentationParams,
     instead of being read one by one, and the caller reads it where it
     copies the results out: the program then waits for the card nowhere.
 
-    On the card, a call with ``err`` on the chained or split route is a
-    frame of :data:`tpu_inspect_torch.graphs.FRAMES` under
+    On the card, a call with ``err`` (on any route) is a frame of
+    :data:`tpu_inspect_torch.graphs.FRAMES` under
     :func:`_frame_key`: the first two calls of a key run eagerly, the third
     captures the program into a CUDA graph, and every later one replays it
     (one copy of the image in, one launch, the flag merged into ``err``).
     The outputs are the same bits either way, and fresh tensors: the
-    caller's own, which a later call never writes. The whole-image route,
-    CPU tensors and calls without ``err`` run eagerly.
+    caller's own, which a later call never writes. CPU tensors and calls
+    without ``err`` run eagerly.
 
     Each call is the root span of one frame
     (:mod:`tpu_inspect_torch.utils.trace`), named by its route:
@@ -598,7 +611,7 @@ def _inspect_image_device(image, origins, unit_hw, seg: SegmentationParams,
     with span(route):
         if image.device.type != "cuda":
             return program(image, err)
-        key = None if err is None or route == "frame.whole" else _frame_key(
+        key = None if err is None else _frame_key(
             image, origins, unit_hw, seg, defect, exclusions, ref_centroids, is_reference,
             with_defects, route)
         return FRAMES.run(key, image, err, program, keep=(origins,))

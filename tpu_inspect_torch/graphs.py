@@ -4,8 +4,8 @@ A line inspects every capture with the same program: one grid, one recipe,
 one anchor set. On the card the host's dispatch of that program (its torch
 ops and kernel wrappers) takes longer than the card's work, so
 :func:`tpu_inspect_torch.engine._inspect_image_device` hands each CUDA frame
-of the chained and split routes to :data:`FRAMES` under a key of everything
-the program bakes in (``engine._frame_key``). The first
+(of every route) to :data:`FRAMES` under a key of everything the program
+bakes in (``engine._frame_key``). The first
 ``CAPTURE_AT - 1`` sightings of a key run eagerly; the next one captures
 the program into a ``torch.cuda.CUDAGraph`` (warmed up, then captured, on
 a side stream, into a private memory pool), and from then on each frame of

@@ -23,10 +23,13 @@ read for):
   reference-aligned otsu frame), ``frame.split``, or ``frame.whole`` (the
   whole-image route); under it the stages ``gather``, ``seg.head``,
   ``seg.align``, ``seg.tail``, ``defect.roi``, ``defect.cand`` and
-  ``defect.filter``, or, for a frame of a captured graph
-  (:mod:`tpu_inspect_torch.graphs`), ``graph.replay`` alone (the host does
-  no stage's work there) or ``graph.capture`` (the warm-up's and the
-  capture's stages inside it);
+  ``defect.filter`` (on the whole-image route, ``whole.mask``,
+  ``whole.fill``, ``whole.label`` and ``whole.stats`` inside ``seg.tail``
+  and ``defect.roi``; ``whole.mask``, ``whole.regions`` and
+  ``whole.select`` inside ``defect.filter``), or, for a frame of a
+  captured graph (:mod:`tpu_inspect_torch.graphs`), ``graph.replay``
+  alone (the host does no stage's work there) or ``graph.capture`` (the
+  warm-up's and the capture's stages inside it);
 - ``kernel.<name>`` around each call of a hand kernel's wrapper, ``<name>``
   its key in :data:`tpu_inspect_torch.kernels.LAUNCHES`
   (:class:`tpu_inspect_torch.kernels.Kernel`);
