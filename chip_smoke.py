@@ -67,7 +67,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    corners, staircases, spirals, serpentines, solid planes, real Canny
    edges, the sliding-histogram walk's strips and edges), and the captured
    replay of the one-capture program against its eager run
-   (``tests/test_torch_graph.py``) in one pytest subprocess, which runs
+   (``tests/test_torch_graph.py``) and the capture stream's banded upload
+   of three 4096x3000 captures against the program on resident captures
+   (``tests/test_torch_streaming.py``) in one pytest subprocess, which runs
    beside phase 4 and is read before phase 4b;
 4. every path on the card, each driven with the launch counts set to 0 just
    before it and read just after, and held field by field against the same
@@ -1400,11 +1402,11 @@ def main() -> int:
     mark("phase 3: the cuda-marked tests start, beside phase 4")
     tests = ["tests/test_torch_cuda.py", "tests/test_torch_otsu.py", "tests/test_torch_uf.py",
              "tests/test_torch_median_hist.py", "tests/test_torch_cluster.py",
-             "tests/test_torch_graph.py"]
+             "tests/test_torch_graph.py", "tests/test_torch_streaming.py"]
     selected = ("otsu or tails_ or roi_erode or canny_form or waits_nowhere or uf_ or median_hist "
                 "or mask_chain or cc_stats_ or test_torch_cluster or public_name or adaptive_mean "
                 "or gauss_blur_kernel or adaptive_kernel or head_kernels or canny_head_kernel "
-                "or test_torch_graph")
+                "or test_torch_graph or stream_on_card")
     test_log = tempfile.TemporaryFile(mode="w+")
     test_proc = subprocess.Popen(
         [sys.executable, "-m", "pytest", *tests, "-q", "-m", "cuda", "-k", selected,

@@ -1,13 +1,20 @@
-"""Native (C++) image decode for the port: libpng + libtiff through ctypes.
+"""Native (C++) libraries of the port, compiled with g++ at first use into
+the gitignored ``tpu_inspect_torch/_build/`` (each file name keyed by a hash
+of its source) and loaded through ctypes.
 
-A copy of :mod:`tpu_inspect.native` (the same ``tin_io.cc``, ctypes
-signatures and Python contract), so the port never imports the JAX package.
-``tin_io`` stands in for the reference's Qt/OpenCV C++ decode
-(indexing_ui.py:145-194). It is compiled with g++ at first use into the
-gitignored ``tpu_inspect_torch/_build/``, the file name keyed by a hash of
-the source, and loaded through ctypes. Any failure (no compiler, no
-libpng/libtiff, an unsupported file layout) makes :func:`decode` return None
-and the callers fall back to cv2, so the native path can never break parity.
+``tin_io.cc``: image decode through libpng + libtiff, a copy of
+:mod:`tpu_inspect.native` (the same source, ctypes signatures and Python
+contract), so the port never imports the JAX package. ``tin_io`` stands in
+for the reference's Qt/OpenCV C++ decode (indexing_ui.py:145-194). Any
+failure (no compiler, no libpng/libtiff, an unsupported file layout) makes
+:func:`decode` return None and the callers fall back to cv2, so the native
+path can never break parity.
+
+``band_copy.cc``: a host buffer copied in bands on a persistent pool of
+threads (:func:`copy_bands`), for the capture stream's copy into its pinned
+upload slot (:func:`tpu_inspect_torch.streaming._copy_rows`). Without the
+library :func:`copy_bands` copies nothing and returns False, and the caller
+copies on its own thread.
 """
 
 from __future__ import annotations
@@ -22,27 +29,26 @@ from pathlib import Path
 import numpy as np
 
 _SRC = Path(__file__).resolve().parent / "tin_io.cc"
+_BAND_SRC = _SRC.with_name("band_copy.cc")
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_lib_failed = False
+_libs: dict[str, ctypes.CDLL | None] = {}  # source name -> library, None once it failed
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 
 
-def library_path() -> Path:
-    """Where the library for the current source lives (built or not)."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"libtin_io_{digest}.so"
+def library_path(src: Path = _SRC) -> Path:
+    """Where the library for the current ``src`` lives (built or not)."""
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return _BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
-def _build(out: Path) -> bool:
+def _build(out: Path, src: Path, link: tuple[str, ...]) -> bool:
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = ["g++", "-O2", "-shared", "-fPIC", "-pthread", str(_SRC), "-o", str(tmp),
-           "-lpng", "-ltiff"]
+    cmd = ["g++", "-O2", "-shared", "-fPIC", "-pthread", str(src), "-o", str(tmp), *link]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
         if res.returncode != 0:
@@ -55,46 +61,83 @@ def _build(out: Path) -> bool:
         tmp.unlink(missing_ok=True)
 
 
-def get_lib() -> ctypes.CDLL | None:
-    """Load (building if needed) the native library; None when unavailable."""
-    global _lib, _lib_failed
-    if _lib is not None or _lib_failed:
-        return _lib
+def _load(src: Path, link: tuple[str, ...], bind) -> ctypes.CDLL | None:
+    """Load (building if needed) the library of ``src`` and ``bind`` its
+    signatures; None when it is unavailable, and from then on."""
+    if src.name in _libs:
+        return _libs[src.name]
     with _lock:
-        if _lib is not None or _lib_failed:
-            return _lib
-        try:
-            path = library_path()
-            if not path.exists() and not _build(path):
-                _lib_failed = True
-                return None
-            lib = ctypes.CDLL(str(path))
-            lib.tin_decode.restype = ctypes.c_int
-            lib.tin_decode.argtypes = [
-                ctypes.c_char_p, ctypes.POINTER(_U8P), _I32P, _I32P, _I32P, _I32P,
-            ]
-            lib.tin_free.restype = None
-            lib.tin_free.argtypes = [_U8P]
-            lib.tin_version.restype = ctypes.c_char_p
-            lib.tin_encode_png_gray8.restype = ctypes.c_int
-            lib.tin_encode_png_gray8.argtypes = [
-                ctypes.c_char_p, _U8P, ctypes.c_int32, ctypes.c_int32,
-            ]
-            lib.tin_loader_create.restype = ctypes.c_void_p
-            lib.tin_loader_create.argtypes = [
-                ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32,
-            ]
-            lib.tin_loader_next.restype = ctypes.c_int
-            lib.tin_loader_next.argtypes = [
-                ctypes.c_void_p, ctypes.POINTER(_U8P), _I32P, _I32P, _I32P, _I32P,
-            ]
-            lib.tin_loader_destroy.restype = None
-            lib.tin_loader_destroy.argtypes = [ctypes.c_void_p]
-            _lib = lib
-        except OSError:
-            _lib_failed = True
-    return _lib
+        if src.name not in _libs:
+            lib = None
+            try:
+                path = library_path(src)
+                if path.exists() or _build(path, src, link):
+                    lib = ctypes.CDLL(str(path))
+                    bind(lib)
+            except OSError:
+                lib = None
+            _libs[src.name] = lib
+    return _libs[src.name]
+
+
+def _bind_tin_io(lib: ctypes.CDLL) -> None:
+    lib.tin_decode.restype = ctypes.c_int
+    lib.tin_decode.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(_U8P), _I32P, _I32P, _I32P, _I32P,
+    ]
+    lib.tin_free.restype = None
+    lib.tin_free.argtypes = [_U8P]
+    lib.tin_version.restype = ctypes.c_char_p
+    lib.tin_encode_png_gray8.restype = ctypes.c_int
+    lib.tin_encode_png_gray8.argtypes = [
+        ctypes.c_char_p, _U8P, ctypes.c_int32, ctypes.c_int32,
+    ]
+    lib.tin_loader_create.restype = ctypes.c_void_p
+    lib.tin_loader_create.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32,
+    ]
+    lib.tin_loader_next.restype = ctypes.c_int
+    lib.tin_loader_next.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(_U8P), _I32P, _I32P, _I32P, _I32P,
+    ]
+    lib.tin_loader_destroy.restype = None
+    lib.tin_loader_destroy.argtypes = [ctypes.c_void_p]
+
+
+def _bind_band_copy(lib: ctypes.CDLL) -> None:
+    lib.bc_copy.restype = ctypes.c_int
+    lib.bc_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+
+
+def get_lib() -> ctypes.CDLL | None:
+    """Load (building if needed) the decode library; None when unavailable."""
+    return _load(_SRC, ("-lpng", "-ltiff"), _bind_tin_io)
+
+
+def copy_bands(dst: np.ndarray, src: np.ndarray, offsets) -> bool:
+    """Copy bytes ``[offsets[i], offsets[i + 1])`` of ``src`` into ``dst``
+    for every band ``i`` on the library's pool of threads, the calling
+    thread one of them; every band has landed on return. ``dst`` and
+    ``src`` are C-contiguous and apart, ``dst`` writeable, and ``offsets``
+    rise from 0 to at most either's size (else ValueError). Returns False,
+    having copied nothing, when the library is unavailable."""
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    if not (dst.flags.c_contiguous and src.flags.c_contiguous and dst.flags.writeable):
+        raise ValueError("copy_bands takes C-contiguous arrays and a writeable destination")
+    if (len(offsets) < 2 or offsets[0] != 0 or (np.diff(offsets) <= 0).any()
+            or offsets[-1] > min(dst.nbytes, src.nbytes)):
+        raise ValueError(f"band offsets {offsets.tolist()} do not rise from 0 within "
+                         f"{min(dst.nbytes, src.nbytes)} bytes")
+    if np.may_share_memory(dst, src):
+        raise ValueError("copy_bands takes buffers that do not overlap")
+    lib = _load(_BAND_SRC, (), _bind_band_copy)
+    if lib is None:
+        return False
+    rc = lib.bc_copy(dst.ctypes.data, src.ctypes.data, offsets.ctypes.data, len(offsets) - 1)
+    if rc != 0:
+        raise RuntimeError(f"bc_copy returned {rc}")
+    return True
 
 
 def version() -> str | None:

@@ -16,9 +16,23 @@ frames before it; the host waits only where it refills an upload slot
 set, so from its third frame on the card the program is a replay of one
 captured CUDA graph (:mod:`tpu_inspect_torch.graphs`): the dispatch is a
 copy of the uploaded capture, one launch and the answers' copies, and
-``stream.fetch`` then holds most of the host's wait for the card. Spans (:mod:`tpu_inspect_torch.utils.trace`, off by
-default): ``stream.upload`` a frame, ``stream.slot_wait`` inside it, the
-frame's program as its ``frame.*`` root, and ``stream.fetch``.
+``stream.fetch`` then holds most of the host's wait for the card.
+
+A capture reaches its pinned slot in row bands copied in parallel
+(:func:`_copy_rows`): a band for each MiB begun, at most one a core the
+process may run on and :data:`_MAX_BANDS`, on a pool of native threads
+made once per process and shared by every stream, the calling thread one
+of them (:func:`tpu_inspect_torch.native.copy_bands`: Python threads would
+start their bands one after another, each once it holds the GIL). A
+capture of 1 MiB or less, a process on one core, or a host without the
+native library copies on the calling thread alone. :data:`UPLOADS` counts
+both kinds of copy and the bands; reset it with :func:`reset_uploads`.
+
+Spans (:mod:`tpu_inspect_torch.utils.trace`, off by default):
+``stream.upload`` a frame, ``stream.slot_wait`` and ``stream.copy`` (the
+copy into the pinned slot, on the calling thread; the workers open no span)
+inside it, the frame's program as its ``frame.*`` root, and
+``stream.fetch``.
 
 Verdicts, areas and found flags (a few hundred bytes) are fetched per
 frame; masks stay on the device unless ``fetch_masks`` asks for them
@@ -31,6 +45,8 @@ a rank mesh's image axis, each batch inspected with both axes sharded
 
 from __future__ import annotations
 
+import os
+import threading
 from collections import deque
 from dataclasses import dataclass
 from typing import Iterable, Iterator
@@ -38,6 +54,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from tpu_inspect_torch import native
 from tpu_inspect_torch.config import DefectParams, GridParams, SegmentationParams
 from tpu_inspect_torch.device import resolve_device
 from tpu_inspect_torch.engine import _inspect_image_device, origins_on, ref_centroid_arrays
@@ -56,14 +73,60 @@ class StreamResult:
     defect_masks: np.ndarray | None = None
 
 
+UPLOADS: dict[str, int] = {"banded": 0, "single": 0, "bands": 0}
+_uploads_lock = threading.Lock()  # streams on several threads count every copy
+
+_BAND_BYTES = 1 << 20  # a band for each MiB of capture begun
+_MAX_BANDS = 8  # a fixed ceiling, whatever the cores
+
+
+def reset_uploads() -> None:
+    with _uploads_lock:
+        for name in UPLOADS:
+            UPLOADS[name] = 0
+
+
+def _band_edges(rows: int, nbytes: int) -> list[int]:
+    """The row edges of the bands a capture of ``rows`` rows and ``nbytes``
+    bytes is copied in: one band for each MiB begun, at most one a core of
+    ``os.sched_getaffinity`` and :data:`_MAX_BANDS`, never more than
+    ``rows``, at least one. Band ``i`` is rows ``[edges[i], edges[i + 1])``."""
+    n = max(1, min(-(-nbytes // _BAND_BYTES), len(os.sched_getaffinity(0)), _MAX_BANDS, rows))
+    return [rows * i // n for i in range(n + 1)]
+
+
+def _copy_rows(dst: np.ndarray, src: np.ndarray) -> int:
+    """Copy ``src`` into ``dst`` (the same shape and dtype) in the row bands
+    of :func:`_band_edges` on the native pool
+    (:func:`tpu_inspect_torch.native.copy_bands`), all landed on return.
+    One band, a non-contiguous or overlapping array or no native library:
+    one copy on the calling thread. Returns the number of bands and counts
+    the copy in :data:`UPLOADS`."""
+    if dst.shape != src.shape or dst.dtype != src.dtype:
+        raise ValueError(f"copy of {src.dtype}{src.shape} into {dst.dtype}{dst.shape}")
+    edges = _band_edges(src.shape[0], src.nbytes)
+    bands = len(edges) - 1
+    if not (bands > 1 and dst.flags.c_contiguous and dst.flags.writeable
+            and src.flags.c_contiguous and not np.may_share_memory(dst, src)
+            and native.copy_bands(dst, src, np.array(edges) * (src.nbytes // src.shape[0]))):
+        np.copyto(dst, src)
+        bands = 1
+    with _uploads_lock:
+        UPLOADS["banded" if bands > 1 else "single"] += 1
+        UPLOADS["bands"] += bands
+    return bands
+
+
 class _Uploader:
     """Frames to the device through ``slots`` reused pinned host buffers.
 
     A buffer is refilled only after the event recorded behind its last copy
     has completed: refilling it earlier would overwrite a frame the copy
-    engine may still be reading. On the CPU a frame is copied as it is.
-    Each frame is a span ``stream.upload``, its wait for the slot's event a
-    span ``stream.slot_wait`` inside it.
+    engine may still be reading; the frame then lands in the buffer in row
+    bands (:func:`_copy_rows`, span ``stream.copy``) before one
+    non-blocking copy to the device. On the CPU a frame is copied as it
+    is. Each frame is a span ``stream.upload``, its wait for the slot's
+    event a span ``stream.slot_wait`` inside it.
     """
 
     def __init__(self, dev: torch.device, slots: int):
@@ -84,7 +147,8 @@ class _Uploader:
                 return torch.from_numpy(image.copy())
             if self.bufs[s] is None or tuple(self.bufs[s].shape) != image.shape:
                 self.bufs[s] = torch.empty(image.shape, dtype=torch.uint8, pin_memory=True)
-            np.copyto(self.bufs[s].numpy(), image)
+            with span("stream.copy"):
+                _copy_rows(self.bufs[s].numpy(), image)
             out = self.bufs[s].to(self.dev, non_blocking=True)
             self.events[s] = torch.cuda.Event()
             self.events[s].record(torch.cuda.current_stream(self.dev))

@@ -33,8 +33,10 @@ read for):
 - ``kernel.<name>`` around each call of a hand kernel's wrapper, ``<name>``
   its key in :data:`tpu_inspect_torch.kernels.LAUNCHES`
   (:class:`tpu_inspect_torch.kernels.Kernel`);
-- ``stream.upload`` (with ``stream.slot_wait`` inside it) and
-  ``stream.fetch`` in :func:`tpu_inspect_torch.streaming.stream_inspect`;
+- ``stream.upload`` (with ``stream.slot_wait`` and ``stream.copy``, the
+  copy into the pinned slot, inside it) and ``stream.fetch`` in
+  :func:`tpu_inspect_torch.streaming.stream_inspect`; the copy's worker
+  threads open no span;
 - the name given to :func:`tpu_inspect_torch.utils.logging.stage_timer`.
 
 A frame's glue is its root span less the ``kernel.*`` spans inside it;
